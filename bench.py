@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Headline benchmark: online FastSLAM frames/s per chip on the corridor
+"""Headline benchmark: online FastSLAM frames/s per GPU on the corridor
 config (BASELINE.json config 1), vs the measured reference-class pure-numpy
 baseline.
 
@@ -53,9 +53,7 @@ def measure_baseline(steps: int = 100) -> float:
     return steps / (time.time() - t0)
 
 
-def measure_tpu(
-    num_steps: int = 500, use_pallas: bool = True, n_seeds: int = 5
-) -> dict:
+def measure_corridor(num_steps: int = 500, n_seeds: int = 5) -> dict:
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -69,13 +67,9 @@ def measure_tpu(
     cfg = FilterConfig(
         num_particles=64, max_landmarks=192, max_observations=16, sig_dim=3,
         motion_noise=(0.3, 0.1, 0.3, 0.1), meas_noise=(0.1, 0.03), sig_noise=0.5,
-        max_range=6.5, fov_half_angle=2.5, use_pallas=use_pallas,
+        max_range=6.5, fov_half_angle=2.5,
     )
-    try:
-        slam = FastSLAM(cfg)
-    except Exception:
-        cfg = cfg.replace(use_pallas=False) if hasattr(cfg, "replace") else cfg
-        slam = FastSLAM(cfg)
+    slam = FastSLAM(cfg)
 
     def args_for(seed):
         return (
@@ -86,7 +80,7 @@ def measure_tpu(
 
     state0 = slam.init_state(init_pose=jnp.asarray(sim.gt_pose[0]))
 
-    from parakeet_slam_tpu.eval.profiling import device_sync, timed
+    from parakeet_slam_tpu.eval.profiling import timed
 
     # ATE is SEED-AVERAGED: a single filter-RNG rollout of this sim has
     # ~±0.05 m spread (round-1's 0.180 vs round-2's 0.214 were two draws of
@@ -96,7 +90,7 @@ def measure_tpu(
     ates = []
     for s in range(n_seeds):
         _, est, _ = run_sequence(slam, state0, *args_for(s))
-        device_sync(est)
+        jax.block_until_ready(est)
         ates.append(float(ate_rmse(est[:, :2], sim.gt_pose[:, :2])))
 
     dt, _ = timed(
@@ -107,7 +101,6 @@ def measure_tpu(
         "ate": float(np.mean(ates)),
         "ate_std": float(np.std(ates)),
         "ates": [round(a, 4) for a in ates],
-        "device": str(jax.devices()[0]),
     }
 
 
@@ -115,7 +108,6 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--measure-baseline", action="store_true")
     ap.add_argument("--steps", type=int, default=500)
-    ap.add_argument("--no-pallas", action="store_true")
     args = ap.parse_args()
 
     if args.measure_baseline:
@@ -124,9 +116,22 @@ def main():
         print(json.dumps({"metric": "baseline_fps", "value": fps, "unit": "frames/s"}))
         return
 
-    r = measure_tpu(args.steps, use_pallas=not args.no_pallas)
+    import jax
+
+    from parakeet_slam_tpu.eval.profiling import card_name_and_power_limit
+    from parakeet_slam_tpu.utils.compile_cache import enable_compile_cache
+
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise SystemExit(
+            f"no GPU found (JAX platform {dev.platform!r}): the benchmark "
+            "reports frames/s per GPU and does not run elsewhere"
+        )
+    print(card_name_and_power_limit(), file=sys.stderr)
+    enable_compile_cache()
+    r = measure_corridor(args.steps)
     print(
-        f"device={r['device']} ate={r['ate']:.3f}±{r['ate_std']:.3f} "
+        f"device={dev.device_kind} ate={r['ate']:.3f}±{r['ate_std']:.3f} "
         f"(seeds {r['ates']}) fps={r['fps']:.1f} "
         f"baseline={NUMPY_BASELINE_FPS}",
         file=sys.stderr,
@@ -134,7 +139,7 @@ def main():
     print(
         json.dumps(
             {
-                "metric": "corridor_online_fastslam_fps_per_chip",
+                "metric": "corridor_online_fastslam_fps_per_gpu",
                 "value": round(r["fps"], 2),
                 "unit": "frames/s",
                 "vs_baseline": round(r["fps"] / NUMPY_BASELINE_FPS, 2),

@@ -1,4 +1,4 @@
-"""parakeet_slam_tpu — a TPU-native SLAM engine built from scratch in JAX.
+"""parakeet_slam_tpu — a SLAM engine built from scratch in JAX.
 
 Covers the capability surface of the reference `buckbaskin/parakeet_slam`
 (see SURVEY.md; reference mount was empty at survey time, so the behavioral
@@ -7,11 +7,11 @@ contract is the FastSLAM algorithm spec in SURVEY.md §3 and BASELINE.json):
 - vision frontend: feature detection + descriptor matching, incl. panoramic
   (equirectangular) frames                      -> `frontend/`
 - FastSLAM particle filter with per-landmark EKF updates, dense batched
-  particle x landmark arrays, Pallas hot-loop kernels
+  particle x landmark arrays, a Pallas association kernel for the GPU
                                                 -> `filter/`, `kernels/`
 - pose-graph / bundle-adjustment backend with Schur-complement elimination
                                                 -> `backend/`
-- multi-chip / multi-host scaling via jax.sharding meshes and collectives
+- multi-device scaling via jax.sharding meshes and collectives
                                                 -> `dist/`
 
 Aliases for the conventional layout names: `ops` -> `kernels`,

@@ -1,19 +1,19 @@
 """Bundle adjustment: Schur-complement reduced camera system, solved by PCG
-with an implicit operator — the TPU-native large-scale design.
+with an implicit operator — the large-scale accelerator design.
 
 SURVEY.md §3 backend contract: minimize Σ ρ(‖π(T_c, X_p) − u‖²) over camera
 poses T (SE(3) tangent steps) and points X. Normal equations
 [B E; Eᵀ C][δc; δp] = -[v; w] with C block-diagonal (3×3 per landmark).
 Schur: (B − E C⁻¹ Eᵀ) δc = -v + E C⁻¹ w, then δp = -C⁻¹(w + Eᵀ δc).
 
-TPU-first choices (cf. MegBA, PAPERS.md:9, for the distributed pattern):
+Design choices (cf. MegBA, PAPERS.md:9, for the distributed pattern):
 - The reduced camera matrix S = B − E C⁻¹ Eᵀ is **never materialized**.
   PCG needs only S·x, computed per-observation with gathers + segment-sums:
       S·x = B·x − Jcᵀ(Jp(C⁻¹(Jpᵀ(Jc·x))))
-  Every term is a dense batched einsum over the observation axis — MXU/VPU
-  work with static shapes, no irregular camera-pair assembly.
-- C⁻¹ application is the fused Pallas `kernels/schur.cinv_apply` op
-  (closed-form cofactor inverse applied in one pass; C⁻¹ never hits HBM).
+  Every term is a dense batched einsum over the observation axis, with
+  static shapes and no irregular camera-pair assembly.
+- C⁻¹ is applied by `kernels/schur.cinv_apply` (closed-form cofactor
+  inverse in one fused pass; C⁻¹ never reaches device memory).
   No linalg.solve anywhere.
 - Robust Huber weights fold into the residual/Jacobian weighting.
 - Distribution (SURVEY.md §2b "map-block parallelism"): observations and
@@ -140,8 +140,8 @@ def _build_blocks(prob, r, Jc, Jp, w, lam):
 
 def _schur_matvec(x, prob, B, C, Jc, Jp, w):
     """S·x = B·x − Jcᵀ W Jp C⁻¹ Jpᵀ W Jc x, all per-observation. The C⁻¹
-    apply is the Pallas `kernels/schur` op (cofactor inverse fused with the
-    matvec, C⁻¹ never materialized in HBM)."""
+    apply is `kernels/schur.cinv_apply` (cofactor inverse fused with the
+    matvec by XLA, C⁻¹ never materialized in HBM)."""
     Bx = jnp.einsum("cij,cj->ci", B, x)
     # t = W Jc x  per obs [O, Dz]
     t = jnp.einsum("okj,oj->ok", Jc, x[prob.obs_cam]) * w[:, None]
@@ -204,7 +204,7 @@ def ba_cost(camera, prob: BAProblem, huber_delta: float) -> jax.Array:
 
 
 # ---------------------------------------------------------------------------
-# Point-major packed path (the production TPU layout — see
+# Point-major packed path (the production layout — see
 # graph.BAProblemPacked): per-point aggregations are dense axis-1 sums,
 # killing the 50k-wide XLA scatter-adds that dominated the obs-major matvec.
 # ---------------------------------------------------------------------------
@@ -256,8 +256,8 @@ def _build_blocks_packed(packed, r, Jc, Jp, w, lam):
 
 
 def _schur_matvec_packed(x, packed, B, C, Jc, Jp, w):
-    """S·x with dense per-point reductions; C⁻¹ apply is the Pallas
-    `kernels/schur` op."""
+    """S·x with dense per-point reductions; C⁻¹ apply is
+    `kernels/schur.cinv_apply`."""
     C_ = packed.num_cams
     Bx = jnp.einsum("cij,cj->ci", B, x)
     t = jnp.einsum("lkdj,lkj->lkd", Jc, x[packed.p_cam]) * w[..., None]
@@ -338,15 +338,14 @@ def optimize_ba(
 # ---------------------------------------------------------------------------
 # Bucketed point-major path (see graph.BAProblemBuckets): per-point work is
 # dense within each [Lb, Kb] bucket, camera-side aggregation is a one-hot
-# MXU matmul — the whole LM iteration runs with zero XLA scatters except one
+# matmul — the whole LM iteration runs with zero XLA scatters except one
 # per-iteration write-back of δp into the [Lm, 3] point table.
 # ---------------------------------------------------------------------------
 
 
 def _onehot_gather(onehot, table, shape):
-    """table[p_cam] as a one-hot MXU matmul: XLA row-gathers from a small
-    [C, D] table are element-serial on TPU (~1.2 ms for 188k rows measured
-    on v5e); the [N, C] @ [C, D] matmul is bandwidth-bound instead."""
+    """table[p_cam] as a one-hot [N, C] @ [C, D] matmul instead of a row
+    gather from the small [C, D] table."""
     flat = jnp.einsum("nc,cd->nd", onehot, table)
     return flat.reshape(*shape, table.shape[-1])
 
@@ -419,7 +418,7 @@ def _optimize_buckets(
     cam_range = jnp.arange(C_)
     # one-hot [N, C] per bucket depends only on the (static) observation
     # graph — built once per solve, hoisted out of the LM scan; every
-    # camera-side gather AND segment-sum becomes an MXU matmul against it.
+    # camera-side gather AND segment-sum becomes a matmul against it.
     onehots = tuple(
         (p_cam.reshape(-1)[:, None] == cam_range[None, :]).astype(jnp.float32)
         for p_cam in bk.p_cam
@@ -591,8 +590,9 @@ def _optimize_buckets(
         cost_rep = jnp.where(accept, new_cost, old_cost)
         return (cam_out, pts_out, lam_next), (cost_rep, pcg_res)
 
-    # fp32 accumulation discipline (SURVEY.md §8): TPU's default bf16 matmul
-    # precision corrupts the normal equations enough to stall/diverge LM.
+    # fp32 accumulation discipline (SURVEY.md §8): reduced-precision matmuls
+    # (TF32 on the GPU by default) corrupt the normal equations enough to
+    # stall or diverge LM.
     with jax.default_matmul_precision("highest"):
         (cam_f, pts_f, _), (costs, pcg_res) = jax.lax.scan(
             step, (bk.cam_pose, bk.points, jnp.float32(lam)), None,
@@ -659,8 +659,9 @@ def _optimize_packed(
         lam_next = jnp.where(accept, lam_t * 0.5, lam_t * 4.0)
         return (cam_out, pts_out, lam_next), (new_cost, pcg_res)
 
-    # fp32 accumulation discipline (SURVEY.md §8): TPU's default bf16 matmul
-    # precision corrupts the normal equations enough to stall/diverge LM.
+    # fp32 accumulation discipline (SURVEY.md §8): reduced-precision matmuls
+    # (TF32 on the GPU by default) corrupt the normal equations enough to
+    # stall or diverge LM.
     with jax.default_matmul_precision("highest"):
         (cam_f, pts_f, _), (costs, pcg_res) = jax.lax.scan(
             step, (packed.cam_pose, packed.points, jnp.float32(lam)), None,

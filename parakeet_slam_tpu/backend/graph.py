@@ -11,12 +11,12 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from parakeet_slam_tpu.core import geometry
+from parakeet_slam_tpu.core.state import pytree_dataclass
 
 
-@struct.dataclass
+@pytree_dataclass
 class PoseGraph:
     """SE(3) pose graph: nodes + relative-pose edges.
 
@@ -120,7 +120,7 @@ def add_edge(g: PoseGraph, i, j, rel: jax.Array, info=None, valid=True) -> PoseG
     )
 
 
-@struct.dataclass
+@pytree_dataclass
 class BAProblem:
     """Bundle-adjustment problem: cameras, points, projections.
 
@@ -183,16 +183,16 @@ def make_ba_problem(
     )
 
 
-@struct.dataclass
+@pytree_dataclass
 class BAProblemPacked:
-    """Point-major padded BA problem — the TPU execution layout.
+    """Point-major padded BA problem — a dense execution layout.
 
     Derived from `BAProblem` by `pack_problem`: every point's observations
     are bucketed into a dense [Lm, Kmax] table.  The Schur matvec's
     per-point aggregations (Jpᵀ t, C blocks, w_g, back-substitution) then
     become dense axis-1 sums and broadcasts — no XLA scatter/gather on the
-    50k-wide point axis, which measured 4.6 ms PER scatter-add at EuRoC
-    scale on v5e.  Camera-side ops still index the small [C, ...] tables.
+    50k-wide point axis.  Camera-side ops still index the small [C, ...]
+    tables.
 
     cam_pose  [C, 7], cam_valid [C], cam_fixed [C]
     points    [Lm, 3], pt_valid [Lm]
@@ -276,9 +276,9 @@ def pack_problem(prob: BAProblem, k_max: int | None = None) -> BAProblemPacked:
     )
 
 
-@struct.dataclass
+@pytree_dataclass
 class BAProblemBuckets:
-    """Bucketed point-major BA layout — the production TPU execution form.
+    """Bucketed point-major BA layout — the production execution form.
 
     `BAProblemPacked` pads every point to the global max obs/point, which
     on skewed covisibility (KITTI/EuRoC: mean ~2.6, max ~12+) multiplies
@@ -287,9 +287,8 @@ class BAProblemBuckets:
     stays within ~2x of the true observation count.  Each point appears in
     exactly one bucket; per-point reductions (C blocks, w_g, back-
     substitution) are dense axis-1 sums inside a bucket, and camera-side
-    aggregations are one-hot MXU matmuls — the Schur matvec contains **no
-    scatter at all** (XLA scatter-add over a 50k point table measured
-    ~4.6 ms per call on v5e; it dominated both earlier layouts).
+    aggregations are one-hot matmuls — the Schur matvec contains **no
+    scatter at all**.
 
     cam_pose [C, 7], cam_valid [C], cam_fixed [C]
     points   [Lm, 3], pt_valid [Lm]

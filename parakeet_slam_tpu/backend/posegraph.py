@@ -5,7 +5,7 @@ SURVEY.md §3 backend contract: minimize
 over keyframe poses by GN with left-multiplied tangent perturbations
 (T ← T·exp(δ)), first valid node gauge-fixed.
 
-TPU formulation: residual Jacobians per edge come from one `jax.jacfwd`
+Batched formulation: residual Jacobians per edge come from one `jax.jacfwd`
 over the 12-dim (δi, δj) edge perturbation — batched over ALL edges with
 vmap, so the linearization is a single fused XLA op; the normal system is
 assembled densely ([K*6, K*6]) with scatter-adds and solved by Cholesky.
@@ -61,9 +61,9 @@ def optimize_pose_graph(
     on-device: costs 8e3 -> 8e4 -> ... -> inf -> nan, after which the NaN
     correction poisons every particle pose. LM rejects cost-increasing
     steps and raises lambda instead. All linear algebra is pinned to
-    float32 matmuls: TPU default (bf16 inputs) corrupts H enough that the
-    same graph converging on CPU diverges on TPU (SURVEY.md §8 fp32
-    accumulation discipline).
+    full-float32 matmuls: reduced-precision inputs (TF32 on the GPU by
+    default) corrupt H enough that a graph converging in float32 diverges
+    (SURVEY.md §8 fp32 accumulation discipline).
 
     `huber`: robust kernel width in information-weighted sigma units
     (IRLS: each edge is down-weighted by min(1, huber/||r||_Λ) at every

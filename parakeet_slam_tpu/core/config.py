@@ -11,10 +11,10 @@ The 5 driver benchmark configs (BASELINE.json:6-12) ship as YAML presets in
 from __future__ import annotations
 
 import dataclasses
+import json
+import re
 from dataclasses import dataclass, field
 from typing import Any
-
-import yaml
 
 
 @dataclass(frozen=True)
@@ -39,9 +39,10 @@ class FilterConfig:
     # at the progressively refined pose (the textbook formulation — one
     # [P, L] sweep PER OBSERVATION, accurate when motion noise is large
     # relative to landmark spacing); "hoisted" scores the whole frame once
-    # at the motion-mean pose (one fused kernel sweep per frame — the only
+    # at the motion-mean pose (one landmark sweep per frame — the only
     # formulation that scales to vision configs with Z~100 observations).
-    # "auto": hoisted on the fused 3-D Pallas path, sequential otherwise.
+    # "auto": hoisted on the 3-D camera models without a signature,
+    # sequential otherwise.
     fs2_association: str = "auto"
 
     # Motion noise alphas (odometry model, Probabilistic Robotics table 5.6).
@@ -123,7 +124,6 @@ class FilterConfig:
     max_range: float = 10.0      # FOV range gate
     fov_half_angle: float = 3.15 # FOV bearing gate (rad); > pi = omnidirectional
 
-    use_pallas: bool = False     # route hot loops through Pallas kernels
     seed: int = 0
 
 
@@ -226,10 +226,12 @@ class BackendConfig:
 
 @dataclass(frozen=True)
 class DistConfig:
-    """Device mesh / sharding (SURVEY.md §2b TPU-native parallelism)."""
+    """Device mesh / sharding (SURVEY.md §2b). The mesh has
+    map_axis x particle_axis devices; every device reaches every other at
+    the same rate, so the split follows the algorithm alone."""
 
-    particle_axis: int = 1   # chips along 'ici' axis sharding particles
-    map_axis: int = 1        # hosts along 'dcn' axis sharding landmark blocks
+    particle_axis: int = 1   # devices along the 'ici' axis sharding particles
+    map_axis: int = 1        # devices along the 'dcn' axis sharding BA point blocks
     mesh_axes: tuple[str, str] = ("dcn", "ici")
 
 
@@ -290,7 +292,7 @@ def load_config(path: str, overrides: dict[str, Any] | None = None) -> SLAMConfi
     """Load a YAML preset; apply dotted-key overrides like
     {"filter.num_particles": 512}."""
     with open(path) as f:
-        raw = yaml.safe_load(f) or {}
+        raw = parse_yaml(f.read())
     cfg = _build(SLAMConfig, raw)
     if overrides:
         cfg = apply_overrides(cfg, overrides)
@@ -309,3 +311,66 @@ def _replace_path(obj, parts, value):
         return dataclasses.replace(obj, **{parts[0]: value})
     sub = getattr(obj, parts[0])
     return dataclasses.replace(obj, **{parts[0]: _replace_path(sub, parts[1:], value)})
+
+
+_NUMBER = re.compile(r"[-+]?(\d+\.?\d*|\.\d+)([eE][-+]?\d+)?$")
+
+
+def _scalar(text: str):
+    """A YAML plain, quoted or flow-list scalar of the preset subset."""
+    text = text.strip()
+    if text.startswith("["):
+        if not text.endswith("]"):
+            raise ValueError(f"unterminated flow list: {text!r}")
+        inner = text[1:-1].strip()
+        return [_scalar(x) for x in inner.split(",")] if inner else []
+    if text[:1] in ("'", '"'):
+        if len(text) < 2 or text[-1] != text[0]:
+            raise ValueError(f"unterminated string: {text!r}")
+        return json.loads(text) if text[0] == '"' else text[1:-1].replace("''", "'")
+    low = text.lower()
+    if low in ("true", "false"):
+        return low == "true"
+    if low in ("null", "~", ""):
+        return None
+    if _NUMBER.match(text):
+        return float(text) if any(c in text for c in ".eE") else int(text)
+    return text
+
+
+def _strip_comment(line: str) -> str:
+    """Drop a ` #` comment that is not inside quotes."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in ("'", '"'):
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def parse_yaml(text: str) -> dict[str, Any]:
+    """Read the YAML subset the presets use: nested block mappings by
+    indentation, plain/quoted scalars, flow lists and comments."""
+    root: dict[str, Any] = {}
+    stack = [(-1, root)]
+    for n, raw in enumerate(text.splitlines(), 1):
+        line = _strip_comment(raw).rstrip()
+        if not line.strip() or line.strip() == "---":
+            continue
+        indent = len(line) - len(line.lstrip(" "))
+        key, sep, rest = line.strip().partition(":")
+        if not sep or not key or (rest and not rest.startswith(" ")):
+            raise ValueError(f"line {n}: expected 'key: value', got {raw!r}")
+        while indent <= stack[-1][0]:
+            stack.pop()
+        parent = stack[-1][1]
+        if rest.strip():
+            parent[key.strip()] = _scalar(rest)
+        else:
+            child: dict[str, Any] = {}
+            parent[key.strip()] = child
+            stack.append((indent, child))
+    return root

@@ -3,7 +3,7 @@
 Pure-JAX, shape-polymorphic over leading batch dims; every function is safe
 under `jit`/`vmap`/`scan`. The reference (`buckbaskin/parakeet_slam`,
 SURVEY.md L0 "math utilities") carried only angle wrapping and small numpy
-helpers; this module is the TPU-native superset needed for the pose-graph /
+helpers; this module is the batched superset needed for the pose-graph /
 BA backend (SE(3) manifold steps) and ATE evaluation (Umeyama alignment).
 
 Conventions:

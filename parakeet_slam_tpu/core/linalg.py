@@ -2,12 +2,11 @@
 
 The FastSLAM hot loop inverts the innovation covariance Q = H Σ Hᵀ + R per
 (particle × landmark) pair. Q is 1x1 .. 3x3 depending on the measurement
-model (bearing-only, range-bearing, pinhole uv, stereo uvd). On TPU,
-`jnp.linalg.inv` on [..., 3, 3] lowers to an unbatchable LAPACK-style path
-or loses fusion; closed-form cofactor expressions stay elementwise on the
-VPU and fuse into the surrounding kernel. These are the building blocks the
-Pallas EKF kernel (`kernels/ekf_update`) uses in-kernel — no `linalg.solve`
-anywhere on the hot path (SURVEY.md §8 phase 3).
+model (bearing-only, range-bearing, pinhole uv, stereo uvd). Closed-form
+cofactor expressions stay elementwise and fuse into the surrounding
+computation, where `jnp.linalg.inv` on [..., 3, 3] would be a separate
+batched solver call — no `linalg.solve` anywhere on the hot path
+(SURVEY.md §8 phase 3).
 """
 
 from __future__ import annotations

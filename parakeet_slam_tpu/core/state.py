@@ -13,12 +13,21 @@ resampling are single batched XLA/Pallas ops (BASELINE.json north_star):
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 
-@struct.dataclass
+def pytree_dataclass(cls):
+    """Frozen dataclass registered as a JAX pytree whose fields are all
+    array leaves, with `.replace(**changes)` for functional updates."""
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    cls.replace = lambda self, **changes: dataclasses.replace(self, **changes)
+    return jax.tree_util.register_dataclass(cls)
+
+
+@pytree_dataclass
 class ParticleState:
     """FastSLAM filter state: P particles × Lmax landmark slots.
 
@@ -92,7 +101,7 @@ def make_particle_state(
     )
 
 
-@struct.dataclass
+@pytree_dataclass
 class Observation:
     """A batch of per-frame feature observations, fixed capacity Zmax.
 

@@ -20,6 +20,8 @@ from pathlib import Path
 
 import numpy as np
 
+from parakeet_slam_tpu.data.png import read_gray
+
 # Standard EuRoC cam0 intrinsics (identical across MH sequences).
 EUROC_INTRINSICS = (458.654, 457.296, 367.215, 248.375)
 
@@ -36,13 +38,7 @@ class EuRoCSequence:
         return len(self.image_files)
 
     def image(self, i: int) -> np.ndarray:
-        import cv2
-
-        p = self.root / "mav0" / "cam0" / "data" / self.image_files[i]
-        img = cv2.imread(str(p), cv2.IMREAD_GRAYSCALE)
-        if img is None:
-            raise FileNotFoundError(p)
-        return img.astype(np.float32) / 255.0
+        return read_gray(self.root / "mav0" / "cam0" / "data" / self.image_files[i])
 
 
 def load_euroc(root: str, max_dt: float = 0.01) -> EuRoCSequence:

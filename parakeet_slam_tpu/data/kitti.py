@@ -14,6 +14,8 @@ from pathlib import Path
 
 import numpy as np
 
+from parakeet_slam_tpu.data.png import read_gray
+
 
 @dataclass
 class KITTISequence:
@@ -31,14 +33,8 @@ class KITTISequence:
         return self.n_frames
 
     def image(self, i: int, right: bool = False) -> np.ndarray:
-        import cv2
-
         cam = "image_1" if right else "image_0"
-        p = self.root / cam / f"{i:06d}.png"
-        img = cv2.imread(str(p), cv2.IMREAD_GRAYSCALE)
-        if img is None:
-            raise FileNotFoundError(p)
-        return img.astype(np.float32) / 255.0
+        return read_gray(self.root / cam / f"{i:06d}.png")
 
     def gt_positions(self) -> np.ndarray:
         """[T, 3] ground-truth camera positions (for ATE)."""

@@ -27,6 +27,7 @@ import numpy as np
 import jax.numpy as jnp
 
 from parakeet_slam_tpu.core import geometry
+from parakeet_slam_tpu.data.png import write_png
 
 # body (x-forward, z-up, yaw) -> optical (z-forward, y-down) quaternion,
 # same convention as data/panoramic.py make_panoramic_world.
@@ -387,8 +388,6 @@ def make_hall_world(
 def write_tum_format(world: VisionWorld, out_dir: str, fps: float = 30.0):
     """Write rgb/*.png + rgb.txt + groundtruth.txt (TUM RGB-D layout,
     `data/tum.py` loader contract)."""
-    import cv2
-
     out = Path(out_dir)
     (out / "rgb").mkdir(parents=True, exist_ok=True)
     rgb_lines = ["# color images", "# timestamp filename"]
@@ -397,7 +396,7 @@ def write_tum_format(world: VisionWorld, out_dir: str, fps: float = 30.0):
         ts = i / fps
         name = f"rgb/{ts:.6f}.png"
         img = (world.render(i) * 255).astype(np.uint8)
-        cv2.imwrite(str(out / name), img)
+        write_png(out / name, img)
         rgb_lines.append(f"{ts:.6f} {name}")
         p = world.gt_pose[i]
         gt_lines.append(
@@ -411,8 +410,6 @@ def write_euroc_format(world: VisionWorld, out_dir: str, fps: float = 20.0):
     """Write mav0/cam0/{data.csv,data/*.png} + state_groundtruth_estimate0/
     data.csv (ASL layout, `data/euroc.py` loader contract — NOTE the
     groundtruth quaternion is stored qw-FIRST)."""
-    import cv2
-
     out = Path(out_dir)
     cam = out / "mav0" / "cam0"
     (cam / "data").mkdir(parents=True, exist_ok=True)
@@ -427,7 +424,7 @@ def write_euroc_format(world: VisionWorld, out_dir: str, fps: float = 20.0):
         ts_ns = int(i / fps * 1e9)
         name = f"{ts_ns}.png"
         img = (world.render(i) * 255).astype(np.uint8)
-        cv2.imwrite(str(cam / "data" / name), img)
+        write_png(cam / "data" / name, img)
         cam_rows.append(f"{ts_ns},{name}")
         p = world.gt_pose[i]
         gt_rows.append(
@@ -443,8 +440,6 @@ def write_kitti_format(world: VisionWorld, out_dir: str, sequence: str = "00"):
     """Write sequences/NN/{image_0,image_1,calib.txt,times.txt} +
     poses/NN.txt (KITTI odometry layout, `data/kitti.py` loader contract).
     Returns the sequence directory path."""
-    import cv2
-
     out = Path(out_dir)
     seq = out / "sequences" / sequence
     (seq / "image_0").mkdir(parents=True, exist_ok=True)
@@ -460,10 +455,8 @@ def write_kitti_format(world: VisionWorld, out_dir: str, sequence: str = "00"):
     times, pose_rows = [], []
     for i in range(len(world)):
         left, right = world.render_stereo(i)
-        cv2.imwrite(str(seq / "image_0" / f"{i:06d}.png"),
-                    (left * 255).astype(np.uint8))
-        cv2.imwrite(str(seq / "image_1" / f"{i:06d}.png"),
-                    (right * 255).astype(np.uint8))
+        write_png(seq / "image_0" / f"{i:06d}.png", (left * 255).astype(np.uint8))
+        write_png(seq / "image_1" / f"{i:06d}.png", (right * 255).astype(np.uint8))
         times.append(f"{i * 0.1:.6e}")
         p = world.gt_pose[i]
         R = np.asarray(geometry.quat_to_matrix(jnp.asarray(p[3:])))

@@ -16,6 +16,8 @@ from pathlib import Path
 
 import numpy as np
 
+from parakeet_slam_tpu.data.png import read_gray
+
 TUM_INTRINSICS = {
     # fx, fy, cx, cy per freiburg sequence family
     "fr1": (517.3, 516.5, 318.6, 255.3),
@@ -73,12 +75,7 @@ class TUMSequence:
         return len(self.image_files)
 
     def image(self, i: int) -> np.ndarray:
-        import cv2
-
-        img = cv2.imread(str(self.root / self.image_files[i]), cv2.IMREAD_GRAYSCALE)
-        if img is None:
-            raise FileNotFoundError(self.root / self.image_files[i])
-        return img.astype(np.float32) / 255.0
+        return read_gray(self.root / self.image_files[i])
 
 
 def load_tum(root: str, family: str = "fr1") -> TUMSequence:

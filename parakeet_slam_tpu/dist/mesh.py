@@ -1,13 +1,15 @@
 """Device mesh construction and sharding specs (SURVEY.md §2b).
 
-TPU-native parallelism for SLAM:
+Parallelism for SLAM:
 - **particle axis** ("ici"): particles are embarrassingly parallel except
-  resampling — shard them across chips like a data-parallel batch.
-- **map axis** ("dcn"): landmark/keyframe blocks shard across hosts for
+  resampling — shard them across devices like a data-parallel batch.
+- **map axis** ("dcn"): landmark/keyframe blocks shard across devices for
   distributed BA (the tensor-parallel analog).
 
-Collectives ride `jax.lax` psum/all_gather/ppermute inside `shard_map`;
-there is no NCCL/MPI anywhere (the reference had no parallelism at all —
+The axis names are labels only: every GPU of a host reaches every other
+over NVLink at the same rate, so the split follows the algorithm. The
+collectives are `jax.lax` psum/all_gather/ppermute inside `shard_map`,
+which XLA hands to NCCL (the reference had no parallelism at all —
 SURVEY.md §2b reference column).
 """
 

@@ -6,9 +6,9 @@ restart-based — snapshot solver/filter state every K steps
 count and resume from the latest snapshot. These helpers wrap
 `jax.distributed.initialize` and the resume decision.
 
-Local multi-process testing (no pod needed): spawn N processes with
+Local multi-process testing (one machine): spawn N processes with
   initialize_multihost("localhost:1234", num_processes=N, process_id=rank)
-per SURVEY.md §5 "multi-host without a pod".
+per SURVEY.md §5 "multi-host without a cluster".
 """
 
 from __future__ import annotations

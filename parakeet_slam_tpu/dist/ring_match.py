@@ -1,11 +1,11 @@
 """Ring-streamed descriptor matching across map shards.
 
 SURVEY.md §2b "Ring attention / blockwise" analog: when the landmark /
-keyframe descriptor database is sharded over hosts (map-block parallelism),
+keyframe descriptor database is sharded over devices (map-block parallelism),
 brute-force matching against the WHOLE map streams database shards around
 the `dcn`/`ici` ring with `jax.lax.ppermute` while each shard's query tile
 stays resident. Per ring step every shard matches its local queries against
-the passing database block with the tiled Hamming kernel and folds the
+the passing database block with the Hamming matcher and folds the
 running (best, second-best, arg-best) — identical math to
 `kernels/match.hamming_top2`, lifted one level to the mesh.
 
@@ -24,8 +24,7 @@ from parakeet_slam_tpu.kernels import match as match_mod
 _BIG = 2**30
 
 
-def ring_hamming_top2(qd, q_valid, db_shard, db_valid_shard, axis_name: str,
-                      use_pallas: bool = False):
+def ring_hamming_top2(qd, q_valid, db_shard, db_valid_shard, axis_name: str):
     """Inside shard_map: per-query global (best_idx, best, second) over the
     sharded database.
 
@@ -40,15 +39,10 @@ def ring_hamming_top2(qd, q_valid, db_shard, db_valid_shard, axis_name: str,
 
     perm = [(i, (i + 1) % S) for i in range(S)]
 
-    def local_top2(db, dbv):
-        if use_pallas:
-            return match_mod.hamming_top2(qd, db, dbv)
-        return match_mod.hamming_top2_xla(qd, db, dbv)
-
     def body(s, carry):
         db, dbv, bi, b1, b2 = carry
         src = (me - s) % S  # whose block is resident after s rotations
-        ti, t1, t2 = local_top2(db, dbv)
+        ti, t1, t2 = match_mod.hamming_top2(qd, db, dbv)
         gidx = ti + src * Ml
         new_b1 = jnp.minimum(b1, t1)
         new_bi = jnp.where(t1 < b1, gidx, bi)
@@ -68,12 +62,11 @@ def ring_hamming_top2(qd, q_valid, db_shard, db_valid_shard, axis_name: str,
 
 
 def ring_match(qd, q_valid, db_shard, db_valid_shard, axis_name: str,
-               ratio: float = 0.8, max_distance: int = 80,
-               use_pallas: bool = False):
+               ratio: float = 0.8, max_distance: int = 80):
     """Ratio-tested ring match; same contract as `kernels.match.match` but
     with the database sharded along `axis_name`."""
     bi, b1, b2 = ring_hamming_top2(
-        qd, q_valid, db_shard, db_valid_shard, axis_name, use_pallas
+        qd, q_valid, db_shard, db_valid_shard, axis_name
     )
     good = (
         q_valid

@@ -1,233 +1,199 @@
-"""Per-kernel speed-of-light benchmarks (BASELINE.json:5 "measure BA/
-matching kernel speed-of-light per chip").
+"""Per-operation timings on the GPU at the KITTI 00 preset's widths.
 
-Every hot kernel here is memory-bandwidth- or VPU-bound, so the SOL
-reference is HBM bandwidth: achieved_bytes/s vs the chip's peak. Peak
-constants are per-generation lookup (v5e: 819 GB/s HBM, ~197 bf16
-TFLOP/s); the harness prints achieved GB/s, the % of SOL, and wall time
-per call. `python -m parakeet_slam_tpu.cli bench` is the front door.
+Times what the filter and backend run per frame or per iteration — the
+association score sweep (the Pallas kernel and its XLA reference), the XLA
+EKF apply pass, the resampling gather, descriptor matching, the Schur
+block apply, a BA iteration — and one whole FastSLAM 2.0 frame with the
+score kernel on and off. Each row gives milliseconds, the bytes and
+operations the step needs (computed from shapes), and the share of the
+card's published memory-bandwidth peak. The card must be in `_PEAKS`:
+an unknown device is an error, not a default.
+
+    python -m parakeet_slam_tpu.cli bench [--kernel NAME]
 """
 
 from __future__ import annotations
 
 import json
-import time
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-# Per-chip peaks (HBM GB/s, fp32 TFLOP/s) by platform version keyword.
+# Published peaks by `device_kind`: (memory GB/s, float32 TFLOP/s outside
+# the tensor cores). NVIDIA H100 SXM data sheet, dense rates, 700 W.
 _PEAKS = {
-    "v5 lite": (819.0, 98.0),
-    "v5e": (819.0, 98.0),
-    "v4": (1228.0, 137.0),
-    "v6": (1640.0, 230.0),
-    "cpu": (50.0, 1.0),
+    "NVIDIA H100 80GB HBM3": (3350.0, 67.0),
 }
 
-
-def _peak_for_device():
-    d = jax.devices()[0]
-    name = getattr(d, "device_kind", "") or str(d)
-    for k, v in _PEAKS.items():
-        if k in name.lower():
-            return v
-    return _PEAKS["cpu"] if d.platform == "cpu" else (819.0, 98.0)
+# KITTI 00 preset widths (configs/kitti_00.yaml)
+P_KITTI, L_KITTI, Z_KITTI, W_DESC = 2048, 10240, 128, 8
 
 
-def _time_call(fn, *args, reps=20):
+def peaks_for(device) -> tuple[float, float]:
+    kind = device.device_kind
+    if kind not in _PEAKS:
+        raise KeyError(
+            f"no published peaks for device {kind!r} ({device.platform}); "
+            f"known: {sorted(_PEAKS)}"
+        )
+    return _PEAKS[kind]
+
+
+def _timed(fn, reps=10):
     from parakeet_slam_tpu.eval.profiling import timed
 
-    dt, _ = timed(fn, *args, reps=reps, warmup=1)
+    dt, _ = timed(fn, reps=reps, warmup=1)
     return dt
 
 
-def bench_ekf(P=2048, L=10240, Z=32):
-    """Fused measurement-update kernel at KITTI-config scale."""
-    from parakeet_slam_tpu.kernels import ekf_update
-
-    key = jax.random.PRNGKey(0)
-    pose = jax.random.normal(key, (P, 3))
-    log_w = jnp.zeros((P,))
-    lm_mean = jax.random.normal(jax.random.fold_in(key, 1), (P, L, 2)) * 5
-    eye = jnp.broadcast_to(0.1 * jnp.eye(2), (P, L, 2, 2))
-    lm_sig = jnp.zeros((P, L, 0))
-    lm_valid = jnp.ones((P, L), bool)
-    lm_count = jnp.ones((P, L), jnp.int32)
-    z = jax.random.uniform(key, (Z, 2), minval=1.0, maxval=5.0)
-    sig = jnp.zeros((Z, 0))
-    valid = jnp.ones((Z,), bool)
-    interpret = jax.devices()[0].platform != "tpu"
-
-    def call():
-        return ekf_update.measurement_update_2d(
-            pose, log_w, lm_mean, jnp.asarray(eye), lm_sig, lm_valid, lm_count,
-            z, sig, valid, sig_dim=0, r_var=(0.01, 0.001), sig_var=1.0,
-            log_p0=-8.0, init_infl=1.0, max_range=50.0, fov_half=3.2,
-            cull=True, interpret=interpret,
-        )
-
-    dt = _time_call(call, reps=5)
-    # planes r+w once per frame: 7 geom/count/valid planes in+out
-    plane_bytes = P * L * 4
-    bytes_moved = plane_bytes * 7 * 2
-    # dominant flops: Z obs x P x L x ~60 flops
-    flops = Z * P * L * 60
-    return dt, bytes_moved, flops
-
-
-def bench_ekf3d(P=1024, L=8192, Z=32, model="equirect_3d"):
-    """Fused 3-D vision-model measurement update at panoramic-config scale."""
-    from parakeet_slam_tpu.kernels import ekf_update_3d
-
-    W = 8
-    Dz = 3 if model == "stereo_3d" else 2
-    key = jax.random.PRNGKey(0)
-    pose = jnp.concatenate(
-        [
-            0.01 * jax.random.normal(key, (P, 3)),
-            jnp.broadcast_to(jnp.array([0.0, 0.0, 0.0, 1.0]), (P, 4)),
-        ],
-        axis=1,
-    )
-    log_w = jnp.zeros((P,))
-    lm_mean = jax.random.normal(jax.random.fold_in(key, 1), (P, L, 3)) * 10
-    cov = jnp.broadcast_to(0.1 * jnp.eye(3), (P, L, 3, 3))
-    lm_desc = jax.random.randint(
-        jax.random.fold_in(key, 2), (P, L, W), 0, 2**31 - 1, dtype=jnp.int32
-    ).astype(jnp.uint32)
-    lm_valid = jnp.ones((P, L), bool)
-    lm_count = jnp.ones((P, L), jnp.int32)
-    # Observations spread over the full image extent, as a real detector
-    # produces (NMS-separated keypoints): clustering all Z observations in
-    # one corner makes every one associate to the SAME landmark chain —
-    # a worst-case collision cascade no real frame exhibits, which the
-    # pre-round-4 bench accidentally measured (z was drawn in a 90x90-px
-    # patch of the 2048x1024 panorama).
-    lo = jnp.array([0.0, 0.0, 2.0])[:Dz]
-    hi_z = jnp.array([2048.0, 1024.0, 40.0])[:Dz]
-    z = jax.random.uniform(key, (Z, Dz)) * (hi_z - lo) + lo
-    desc = jax.random.randint(
-        jax.random.fold_in(key, 3), (Z, W), 0, 2**31 - 1, dtype=jnp.int32
-    ).astype(jnp.uint32)
-    valid = jnp.ones((Z,), bool)
-    interpret = jax.devices()[0].platform != "tpu"
-    par = (
-        ("fx", 500.0), ("fy", 500.0), ("cx", 1024.0), ("cy", 512.0),
-        ("baseline", 0.3), ("img_w", 2048.0), ("img_h", 1024.0),
-    )
-
-    def call():
-        return ekf_update_3d.measurement_update_3d(
-            pose, log_w, lm_mean, jnp.asarray(cov), lm_desc, lm_valid,
-            lm_count, z, desc, valid,
-            model=model, desc_words=W, par=par,
-            r_var=(4.0, 4.0, 2.25)[:Dz], desc_weight=0.1, log_p0=-30.0,
-            init_infl=1.0, init_range_prior=5.0, init_range_sigma=2.5,
-            max_range=60.0, cull=True, interpret=interpret,
-        )
-
-    dt = _time_call(call, reps=5)
-    # planes r+w once per frame: 9 geom + W desc + valid + count
-    plane_bytes = P * L * 4
-    bytes_moved = plane_bytes * (11 + W) * 2
-    # dominant flops: Z obs x P x L x ~200 flops (3x3 algebra + hamming)
-    flops = Z * P * L * 200
-    return dt, bytes_moved, flops
-
-
-def bench_fs_step(P=1024, L=8192, Z=32, algorithm="fastslam1"):
-    """Full filter step (propose + measurement + resample path) at
-    panoramic scale through the Pallas kernels — measures the FS2 overhead
-    over FS1 (round-3 item: FS2 must stay <= ~1.5x FS1 with the hoisted
-    single-sweep association instead of a [P, L] sweep per observation)."""
+def vision_filter(model="stereo_3d", P=P_KITTI, L=L_KITTI, Z=Z_KITTI,
+                  algorithm="fastslam2"):
+    """A filter of the given camera model at the KITTI 00 preset's
+    settings (camera of the preset that uses the model)."""
     from parakeet_slam_tpu.core.config import FilterConfig, FrontendConfig
-    from parakeet_slam_tpu.core.state import make_observation
     from parakeet_slam_tpu.filter import make_filter
 
+    Dz = 3 if model == "stereo_3d" else 2
+    fe = {
+        "stereo_3d": FrontendConfig(
+            camera="stereo", intrinsics=(718.856, 718.856, 607.1928, 185.2157),
+            baseline=0.5372, image_size=(376, 1241),
+        ),
+        "pinhole_3d": FrontendConfig(
+            camera="pinhole", intrinsics=(458.654, 457.296, 367.215, 248.375),
+            image_size=(480, 752),
+        ),
+        "equirect_3d": FrontendConfig(camera="equirect", image_size=(1024, 2048)),
+    }[model]
     cfg = FilterConfig(
-        num_particles=P, max_landmarks=L, max_observations=Z,
-        lm_dim=3, obs_dim=2, pose_dim=7, sig_dim=0, desc_words=8,
-        measurement_model="equirect_3d", motion_model="se3_odometry",
-        motion_noise=(0.02, 0.01), meas_noise=(3.0, 3.0),
-        init_range_prior=14.0, init_range_sigma=8.0,
-        new_landmark_loglik=-14.0, max_range=60.0,
-        algorithm=algorithm, use_pallas=True,
+        num_particles=P, max_landmarks=L, max_observations=Z, lm_dim=3,
+        obs_dim=Dz, pose_dim=7, desc_words=W_DESC, sig_dim=0,
+        measurement_model=model, motion_model="se3_odometry",
+        algorithm=algorithm, motion_noise=(0.022, 0.003),
+        meas_noise=(1.5, 1.5, 1.0)[:Dz], max_range=60.0, cull_unseen=True,
+        weight_min_count=5, weight_only_matched=True, assoc_gate_px=4.0,
+        init_range_prior=5.0, init_range_sigma=3.0,
     )
-    fe = FrontendConfig(camera="equirect", image_size=(1024, 2048))
-    slam = make_filter(cfg, fe)
-    key = jax.random.PRNGKey(0)
-    st = slam.init_state()
-    # dense pre-seeded map so the sweep covers all L lanes
-    st = st.replace(
-        lm_mean=jax.random.normal(jax.random.fold_in(key, 1), (P, L, 3)) * 10,
-        lm_cov=jnp.broadcast_to(0.1 * jnp.eye(3), (P, L, 3, 3)) + 0.0,
-        lm_desc=jax.random.randint(
-            jax.random.fold_in(key, 2), (P, L, 8), 0, 2**31 - 1,
-            dtype=jnp.int32,
-        ).astype(jnp.uint32),
-        lm_valid=jnp.ones((P, L), bool),
-        lm_count=jnp.ones((P, L), jnp.int32),
+    return make_filter(cfg, fe)
+
+
+def synthetic_map_state(slam, key, live_frac: float = 1.0):
+    """A filled map as the filter builds it: every landmark initialised by
+    the measurement model from a random pixel (stereo: depth 4-50 m) at a
+    near-identity particle pose, its covariance shrunk by up to 20x as
+    updates would, 90% of lanes valid below `live_frac * L`. Returns
+    (state, obs): the observations re-see particle 0's first Z landmarks
+    with 1 px noise and their own descriptors."""
+    from parakeet_slam_tpu.core.state import make_observation
+
+    c, fe = slam.cfg, slam.fe_cfg
+    P, L, Z, Dz = c.num_particles, c.max_landmarks, c.max_observations, c.obs_dim
+    H, W = fe.image_size
+    k = jax.random.split(key, 9)
+    cols = [
+        jax.random.uniform(k[0], (L,), minval=0.0, maxval=W),
+        jax.random.uniform(k[1], (L,), minval=0.0, maxval=H),
+    ]
+    if Dz == 3:
+        depth = jax.random.uniform(k[2], (L,), minval=4.0, maxval=50.0)
+        cols.append(fe.intrinsics[0] * fe.baseline / depth)
+    z_lm = jnp.stack(cols, axis=1)
+    t = 0.05 * jax.random.normal(k[3], (P, 3))
+    q = jax.random.normal(k[4], (P, 4)) * jnp.array([0.005, 0.005, 0.005, 1.0])
+    pose = jnp.concatenate([t, q / jnp.linalg.norm(q, axis=1, keepdims=True)], 1)
+
+    @jax.jit
+    def init_map(pose, z_lm, shrink):
+        with jax.default_matmul_precision("highest"):
+            mean, cov = jax.vmap(
+                jax.vmap(slam.model.init, in_axes=(None, 0)), in_axes=(0, None)
+            )(pose, z_lm)
+        return mean, cov * shrink
+
+    shrink = jax.random.uniform(k[5], (P, L, 1, 1), minval=0.05, maxval=1.0)
+    mean, cov = init_map(pose, z_lm, shrink)
+    desc = jax.random.bits(k[6], (P, L, W_DESC), jnp.uint32)
+    valid = (jax.random.uniform(k[7], (P, L)) < 0.9) & (
+        jnp.arange(L) < int(live_frac * L)
     )
-    # full-image spread (see bench_ekf3d: clustered z = artificial
-    # worst-case collision cascade)
-    z = jax.random.uniform(key, (Z, 2)) * jnp.array([2048.0, 1024.0])
-    desc = jax.random.randint(
-        jax.random.fold_in(key, 3), (Z, 8), 0, 2**31 - 1, dtype=jnp.int32
-    ).astype(jnp.uint32)
-    obs = make_observation(z, desc=desc, valid=jnp.ones((Z,), bool))
-    u = jnp.zeros((6,)).at[0].set(0.05)
-
-    def call():
-        st2, _ = slam.step(st, u, obs, jax.random.PRNGKey(7))
-        return st2.pose
-
-    dt = _time_call(call, reps=5)
-    plane_bytes = P * L * 4
-    n_sweeps = 2 if algorithm == "fastslam2" else 1
-    bytes_moved = plane_bytes * (11 + 8) * 2 * n_sweeps
-    flops = Z * P * L * 200 * n_sweeps
-    return dt, bytes_moved, flops
+    count = jax.random.randint(k[8], (P, L), 0, 20)
+    state = slam.init_state().replace(
+        pose=pose, lm_mean=mean, lm_cov=cov, lm_desc=desc,
+        lm_valid=valid, lm_count=count,
+    )
+    z = z_lm[:Z] + jax.random.normal(k[0], (Z, Dz))
+    obs = make_observation(z, desc=desc[0, :Z], valid=jnp.ones((Z,), bool))
+    return state, obs
 
 
-def bench_resample(P=2048, L=10240):
-    from parakeet_slam_tpu.kernels import resample_pallas
-
-    key = jax.random.PRNGKey(0)
-    payload = jax.random.normal(key, (P, L * 7))  # full map footprint
-    idx = jax.random.randint(jax.random.fold_in(key, 1), (P,), 0, P)
-    interpret = jax.devices()[0].platform != "tpu"
-
-    def call():
-        return resample_pallas.gather_rows(payload, idx, interpret=interpret)
-
-    dt = _time_call(call, reps=5)
-    bytes_moved = payload.size * 4 * 2
-    return dt, bytes_moved, 0
+def _state_bytes(slam) -> int:
+    c = slam.cfg
+    per_lane = 4 * (3 + 9 + c.desc_words + 1) + 1  # mean, cov, desc, count, valid
+    return c.num_particles * c.max_landmarks * per_lane
 
 
-def bench_match(N=1024, M=131072, W=8):
+def bench_score(kernel: bool, model="stereo_3d"):
+    """Whole-frame association sweep at KITTI width: the Pallas kernel or
+    the XLA scan (one map read per observation)."""
+    slam = vision_filter(model)
+    state, obs = synthetic_map_state(slam, jax.random.PRNGKey(0))
+    slam.score_kernel = kernel
+    fn = jax.jit(slam._frame_scores)
+    dt = _timed(lambda: fn(state, obs))
+    c = slam.cfg
+    sweeps = 1 if kernel else c.max_observations
+    return dt, _state_bytes(slam) * sweeps, c.num_particles * c.max_landmarks * c.max_observations * 60
+
+
+def bench_apply():
+    """XLA EKF apply pass (association bookkeeping, per-observation EKF
+    update/allocation scan, culling) at KITTI width with given scores."""
+    slam = vision_filter()
+    state, obs = synthetic_map_state(slam, jax.random.PRNGKey(0))
+    scores = jax.jit(slam._frame_scores)(state, obs)
+    fn = jax.jit(lambda st, o, s: slam.measurement_core(st, o, False, s))
+    dt = _timed(lambda: fn(state, obs, scores))
+    # each observation's one-hot writes rewrite the mean/cov/desc/count planes
+    return dt, _state_bytes(slam) * 2 * slam.cfg.max_observations, 0
+
+
+def bench_resample():
+    """Resampling gather of the whole particle state (`jnp.take`)."""
+    from parakeet_slam_tpu.kernels import resample
+
+    slam = vision_filter()
+    state, _ = synthetic_map_state(slam, jax.random.PRNGKey(0))
+    idx = jax.random.randint(jax.random.PRNGKey(1), (P_KITTI,), 0, P_KITTI)
+    fn = jax.jit(resample.gather_particles)
+    dt = _timed(lambda: fn(state, idx))
+    return dt, 2 * _state_bytes(slam), 0
+
+
+def bench_frame(kernel: bool):
+    """One FastSLAM 2.0 frame (proposal, association, EKF apply, resample)
+    at KITTI width, with the score kernel on or off."""
+    slam = vision_filter()
+    state, obs = synthetic_map_state(slam, jax.random.PRNGKey(0), live_frac=0.4)
+    slam.score_kernel = kernel
+    u = jnp.zeros((6,)).at[2].set(0.8)
+    fn = jax.jit(slam.step)
+    dt = _timed(lambda: fn(state, u, obs, jax.random.PRNGKey(7)), reps=5)
+    return dt, 0, 0
+
+
+def bench_match(N=512, M=100_000):
+    """Keyframe descriptor matching (XOR + popcount + top-2) against a
+    100k-entry database."""
     from parakeet_slam_tpu.kernels import match
 
     key = jax.random.PRNGKey(0)
-    qd = jax.random.randint(key, (N, W), 0, 2**31 - 1, dtype=jnp.int32).astype(jnp.uint32)
-    db = jax.random.randint(
-        jax.random.fold_in(key, 1), (M, W), 0, 2**31 - 1, dtype=jnp.int32
-    ).astype(jnp.uint32)
+    qd = jax.random.bits(key, (N, W_DESC), jnp.uint32)
+    db = jax.random.bits(jax.random.fold_in(key, 1), (M, W_DESC), jnp.uint32)
     valid = jnp.ones((M,), bool)
-    interpret = jax.devices()[0].platform != "tpu"
-
-    def call():
-        return match.hamming_top2(qd, db, valid, interpret=interpret)
-
-    dt = _time_call(call, reps=5)
-    # db streams PACKED exactly once (in-kernel unpack); q bit-planes r+w
-    bytes_moved = M * W * 4 + N * W * 4 + 2 * N * W * 32 * 2
-    # MXU work actually dispatched: the bit-dot identity runs a
-    # [N, W*32] x [M, W*32] matmul (2 flops/MAC)
-    flops = N * M * (2 * W * 32)
-    return dt, bytes_moved, flops
+    fn = jax.jit(match.hamming_top2)
+    dt = _timed(lambda: fn(qd, db, valid))
+    return dt, (N + M) * W_DESC * 4, N * M * W_DESC * 3
 
 
 def bench_schur(N=262144):
@@ -237,22 +203,16 @@ def bench_schur(N=262144):
     a = jax.random.normal(key, (N, 3, 3))
     C = a @ jnp.swapaxes(a, -1, -2) + 0.5 * jnp.eye(3)
     u = jax.random.normal(jax.random.fold_in(key, 1), (N, 3))
-    interpret = jax.devices()[0].platform != "tpu"
-
-    def call():
-        return schur.apply_cinv(C, u, interpret=interpret)
-
-    dt = _time_call(call, reps=10)
-    bytes_moved = N * (6 + 3 + 3) * 4
-    flops = N * 60
-    return dt, bytes_moved, flops
+    fn = jax.jit(schur.cinv_apply)
+    dt = _timed(lambda: fn(C, u))
+    return dt, N * (9 + 3 + 3) * 4, N * 60
 
 
 def bench_ba(C=64, Pts=50000, obs_per_cam=2000, iters=4, pcg_iters=25):
-    """Full Schur/PCG BA iterations/s at EuRoC-config scale (SURVEY.md §7
-    'BA iterations/s'): C cameras, 50k landmarks, C*obs_per_cam residuals."""
+    """Schur/PCG BA iterations at EuRoC-config scale (SURVEY.md §7 'BA
+    iterations/s'): C cameras, 50k landmarks, C*obs_per_cam residuals."""
     from parakeet_slam_tpu.backend import ba as ba_mod
-    from parakeet_slam_tpu.backend.graph import make_ba_problem
+    from parakeet_slam_tpu.backend.graph import make_ba_problem, pack_buckets
     from parakeet_slam_tpu.core import geometry
     from parakeet_slam_tpu.frontend.camera import Pinhole
 
@@ -269,64 +229,57 @@ def bench_ba(C=64, Pts=50000, obs_per_cam=2000, iters=4, pcg_iters=25):
         jax.random.fold_in(key, 1), (O,), 0, Pts, dtype=jnp.int32
     )
     uv = jax.vmap(
-        lambda c, p: cam.project(
-            geometry.se3_apply_inverse(poses[c], pts[p])
-        )
+        lambda c, p: cam.project(geometry.se3_apply_inverse(poses[c], pts[p]))
     )(obs_cam, obs_pt)
     uv = uv + 0.5 * jax.random.normal(jax.random.fold_in(key, 2), uv.shape)
-    prob = make_ba_problem(poses, pts, obs_cam, obs_pt, uv)
-    # pack once per problem (the production pattern: system.run_ba packs a
-    # problem once, then runs many LM iterations against the device layout)
-    from parakeet_slam_tpu.backend.graph import pack_buckets
-
-    bk = pack_buckets(prob)
+    bk = pack_buckets(make_ba_problem(poses, pts, obs_cam, obs_pt, uv))
 
     def call():
         return ba_mod.optimize_ba(
             cam, bk, iters=iters, pcg_iters=pcg_iters, huber_delta=50.0
         ).problem.cam_pose
 
-    dt = _time_call(call, reps=3)
-    # per LM iteration: linearize (O x jacfwd ~ 500 flops) + pcg_iters
-    # matvecs (O x ~120 flops each)
+    dt = _timed(call, reps=3)
     flops = iters * O * (500 + pcg_iters * 120)
     bytes_moved = iters * (1 + pcg_iters) * O * (2 + 12 + 6) * 4
-    # report iterations/s through the standard row shape; ms is per call
     return dt / iters, bytes_moved / iters, flops / iters
 
 
 BENCHES = {
-    "ekf_update": bench_ekf,
-    "ekf_update_3d": bench_ekf3d,
+    "score_kernel": lambda: bench_score(True),
+    "score_xla": lambda: bench_score(False),
+    "apply_xla": bench_apply,
     "resample": bench_resample,
+    "frame_kernel": lambda: bench_frame(True),
+    "frame_xla": lambda: bench_frame(False),
     "match": bench_match,
     "schur": bench_schur,
     "ba_iteration": bench_ba,
-    "fs1_step": lambda: bench_fs_step(algorithm="fastslam1"),
-    "fs2_step": lambda: bench_fs_step(algorithm="fastslam2"),
 }
 
 
 def main(args=None):
+    from parakeet_slam_tpu.eval.profiling import card_name_and_power_limit
+
     which = getattr(args, "kernel", "all") if args else "all"
-    peak_bw, peak_tf = _peak_for_device()
+    dev = jax.devices()[0]
+    peak_bw, _ = peaks_for(dev)
+    print(card_name_and_power_limit())
     rows = []
     for name, fn in BENCHES.items():
-        if which != "all" and which != name:
+        if which not in ("all", name):
             continue
         dt, bytes_moved, flops = fn()
         gbs = bytes_moved / dt / 1e9
-        tf = flops / dt / 1e12
-        rows.append(
-            {
-                "kernel": name,
-                "ms": round(dt * 1e3, 3),
-                "GB/s": round(gbs, 1),
-                "sol_bw_frac": round(gbs / peak_bw, 3),
-                "TFLOP/s": round(tf, 2),
-            }
-        )
-        print(json.dumps(rows[-1]))
+        rows.append({
+            "op": name,
+            "device": dev.device_kind,
+            "ms": dt * 1e3,
+            "GB/s": gbs,
+            "bw_share": gbs / peak_bw,
+            "GFLOP/s": flops / dt / 1e9,
+        })
+        print(json.dumps(rows[-1]), flush=True)
     return rows
 
 

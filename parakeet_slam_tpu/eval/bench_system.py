@@ -30,7 +30,7 @@ def _pano_cfg(P=256, L=2048, Z=64, H=512, W=1024):
             lm_dim=3, obs_dim=2, pose_dim=7, sig_dim=0, desc_words=8,
             measurement_model="equirect_3d", motion_model="se3_odometry",
             motion_noise=(0.02, 0.01), meas_noise=(2.0, 2.0),
-            new_landmark_loglik=-12.0, max_range=60.0, use_pallas=True,
+            new_landmark_loglik=-12.0, max_range=60.0,
         ),
         frontend=FrontendConfig(
             detector="fast", max_features=Z, fast_threshold=0.10,
@@ -52,7 +52,7 @@ def _stereo_cfg(P=256, L=2048, Z=64, H=376, W=1241):
             lm_dim=3, obs_dim=3, pose_dim=7, sig_dim=0, desc_words=8,
             measurement_model="stereo_3d", motion_model="se3_odometry",
             motion_noise=(0.02, 0.01), meas_noise=(2.0, 2.0, 1.5),
-            new_landmark_loglik=-14.0, max_range=80.0, use_pallas=True,
+            new_landmark_loglik=-14.0, max_range=80.0,
         ),
         frontend=FrontendConfig(
             detector="fast", max_features=Z, fast_threshold=0.10,
@@ -67,7 +67,6 @@ def bench_system(kind: str = "pano", frames: int = 30, **size_kw) -> dict:
     import jax
 
     from parakeet_slam_tpu.data.panoramic import make_panoramic_world
-    from parakeet_slam_tpu.eval.profiling import device_sync
     from parakeet_slam_tpu.system import SLAMSystem
 
     if kind == "pano":
@@ -93,11 +92,11 @@ def bench_system(kind: str = "pano", frames: int = 30, **size_kw) -> dict:
     sys_ = SLAMSystem(cfg)
     for t in range(5):  # warmup: compiles frontend + filter + disparity
         step(sys_, t)
-    device_sync(sys_.state.log_w)
+    jax.block_until_ready(sys_.state.log_w)
     t0 = time.perf_counter()
     for t in range(5, 5 + frames):
         step(sys_, t)
-    device_sync(sys_.state.log_w)
+    jax.block_until_ready(sys_.state.log_w)
     dt = (time.perf_counter() - t0) / frames
     return {
         "pipeline": kind,

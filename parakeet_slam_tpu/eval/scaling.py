@@ -5,7 +5,7 @@ Measures online-filter frames/s and distributed-BA iterations/s on meshes
 of growing size carved from the available devices, and reports efficiency
   eff(N) = throughput(N) / (N * throughput(1)).
 On a CPU host with `jax_num_cpu_devices=8` this validates the collective
-structure; on a pod slice the same harness produces the headline scaling
+structure; on real devices the same harness produces the headline scaling
 numbers (devices are real chips there).
 """
 
@@ -43,16 +43,14 @@ def _filter_throughput(n_devices: int, particles_per_device: int = 256,
     obs = make_observation(z, sig=jnp.zeros((16, 3)), valid=jnp.ones((16,), bool))
     u = jnp.array([0.1, 0.0, 0.02])
     key = jax.random.PRNGKey(0)
-    from parakeet_slam_tpu.eval.profiling import device_sync
-
     # warmup/compile
     state, _ = sharded.step(state, u, obs, key)
-    device_sync(state.pose)
+    jax.block_until_ready(state.pose)
     t0 = time.perf_counter()
     for i in range(steps):
         key, k = jax.random.split(key)
         state, _ = sharded.step(state, u, obs, k)
-    device_sync(state.pose)
+    jax.block_until_ready(state.pose)
     return steps / (time.perf_counter() - t0)
 
 

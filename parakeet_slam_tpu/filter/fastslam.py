@@ -3,21 +3,20 @@
 Implements SURVEY.md §3 exactly — sampled motion update, per-particle
 maximum-likelihood data association, per-landmark EKF updates, importance
 weighting, adaptive systematic resampling, and counter-based map management
-— but TPU-first: where the reference iterates Python dicts per particle
+— but batched: where the reference iterates Python dicts per particle
 (SURVEY.md §4.1 entry 2, the O(particles x landmarks) interpreted hot
 loop), every step here is one batched XLA program over dense
 [P, Lmax] arrays with validity masks. Map growth/culling are masked
 writes; capacities are static so one jit covers the whole run.
 
-Observation batches are processed with `lax.scan` over the fixed Zmax
-capacity: sequential in z (association for obs i sees the map updated by
-obs i-1 — the textbook FastSLAM formulation) but fully parallel over
-particles and landmarks inside each scan step.
+Association scores the whole frame against the PRE-FRAME map (one best
+landmark per particle and observation); the EKF updates and allocations
+then compose sequentially over the observations with a `lax.scan`, fully
+parallel over particles and landmarks inside each step.
 
-The per-(particle x landmark) likelihood + EKF math can optionally route
-through the fused Pallas kernel (`kernels/ekf_update`) with
-`FilterConfig.use_pallas=True`; the plain-JAX path below is the reference
-semantics both for tests and for CPU execution.
+On the GPU the association sweep of the 3-D camera models runs as a
+Pallas kernel (`kernels/score_3d`); the plain-JAX scan below is its
+reference and the implementation everywhere else.
 """
 
 from __future__ import annotations
@@ -34,6 +33,7 @@ from parakeet_slam_tpu.core.geometry import wrap_angle
 from parakeet_slam_tpu.core.state import Observation, ParticleState, make_particle_state
 from parakeet_slam_tpu.filter import models as model_zoo
 from parakeet_slam_tpu.kernels import resample as resample_kernel
+from parakeet_slam_tpu.kernels import score_3d
 
 _NEG_INF = -1e30
 
@@ -55,6 +55,9 @@ class FastSLAM:
         self.fe_cfg = fe_cfg
         self.model = model_zoo.get_measurement_model(cfg, fe_cfg)
         self.motion = model_zoo.get_motion_model(cfg.motion_model)
+        self.score_kernel = score_3d.applies(
+            self.model.name, cfg.sig_dim, jax.default_backend()
+        )
         if cfg.obs_dim != self.model.obs_dim or cfg.lm_dim != self.model.lm_dim:
             raise ValueError(
                 f"config dims ({cfg.obs_dim},{cfg.lm_dim}) do not match model "
@@ -164,53 +167,35 @@ class FastSLAM:
         _, (best, best_ll) = jax.lax.scan(sc, None, (obs.z, obs.sig, obs.desc))
         return best.T, best_ll.T
 
-    def _pallas_3d_eligible(self):
-        c = self.cfg
-        return (
-            c.use_pallas
-            and c.sig_dim == 0
-            and self.model.name in ("pinhole_3d", "stereo_3d", "equirect_3d")
-        )
+    @property
+    def _vision_3d(self) -> bool:
+        """3-D camera model without an appearance signature: the filters
+        whose association the score kernel covers, and whose FastSLAM 2.0
+        proposal scores the frame once (`fs2_association: auto`)."""
+        return self.cfg.sig_dim == 0 and self.model.name in score_3d.VISION_MODELS
 
     def _frame_scores(self, state: ParticleState, obs: Observation):
         """Association of the WHOLE frame against the pre-frame map at the
-        state's poses: ONE landmark sweep — the fused `score_3d` Pallas
-        kernel on the vision models, the XLA scoring scan otherwise.
-        Returns (best [P, Z], best_ll [P, Z])."""
-        c = self.cfg
-        if self._pallas_3d_eligible():
-            from parakeet_slam_tpu.kernels import ekf_update_3d
-
-            interpret = jax.devices()[0].platform != "tpu"
-            ll, ix = ekf_update_3d.score_3d(
+        state's poses: the score kernel where it applies (GPU), the XLA
+        scoring scan otherwise. Returns (best [P, Z], best_ll [P, Z])."""
+        if self.score_kernel:
+            return score_3d.score_3d(
                 state.pose, state.lm_mean, state.lm_cov, state.lm_desc,
                 state.lm_valid, obs.z, obs.desc,
                 model=self.model.name,
-                desc_words=c.desc_words,
                 par=self._vision_kernel_params(),
                 r_var=self._meas_var(assoc=True),
-                desc_weight=float(c.desc_weight),
-                interpret=interpret,
+                desc_weight=float(self.cfg.desc_weight),
             )
-            return ix, ll
-        return self._score_frame(state, obs)
-
-    @property
-    def _weight_shaping(self) -> bool:
-        """True when any scoring/weighting knob needs the split
-        score_3d+apply routing instead of the single fused kernel."""
-        return (
-            self.cfg.weight_min_count > 0
-            or self.cfg.weight_only_matched
-            or self.cfg.assoc_gate_px > 0.0
-        )
+        # float32 contractions may otherwise run as TF32 on the GPU
+        with jax.default_matmul_precision("highest"):
+            return self._score_frame(state, obs)
 
     def _weight_delta(self, state: ParticleState, obs: Observation, scores):
         """Per-particle frame log-weight increment from association scores
         (best lane [P, Z], best loglik [P, Z]), applying the weight-shaping
         config (weight_min_count / weight_only_matched — see
-        core/config.py). Shared by the XLA path, the score_3d+apply Pallas
-        routing, and FastSLAM 2.0's hoisted proposal."""
+        core/config.py)."""
         c = self.cfg
         best, best_ll = scores
         L = state.lm_valid.shape[1]
@@ -224,15 +209,11 @@ class FastSLAM:
             dw = jnp.where(is_new | (cnt >= c.weight_min_count), dw, 0.0)
         return jnp.sum(jnp.where(obs.valid[None, :], dw, 0.0), axis=1)
 
-    def _associate_frame(
-        self, state: ParticleState, obs: Observation, scores=None
-    ):
-        """Batched pre-frame association for the whole frame (the v2
-        semantics shared with the Pallas kernels — see kernels/ekf_update.py
-        docstring): every observation scores against the PRE-FRAME map;
-        new landmarks take ascending free slots in observation order.
-        `scores` (best, best_ll), when given, skips the scoring sweep
-        (FastSLAM 2.0's proposal already computed it at the proposal pose).
+    def _associate_frame(self, state: ParticleState, obs: Observation, scores):
+        """Batched pre-frame association for the whole frame from its
+        scores (best, best_ll): every observation scored against the
+        PRE-FRAME map; new landmarks take ascending free slots in
+        observation order.
 
         Returns (target [P, Z] int32 lane or -1, is_new [P, Z],
                  do_upd [P, Z], do_alloc [P, Z], best_ll [P, Z]).
@@ -241,16 +222,14 @@ class FastSLAM:
         P, L = state.lm_valid.shape
         Z = obs.capacity
 
-        best, best_ll = (
-            self._score_frame(state, obs) if scores is None else scores
-        )
+        best, best_ll = scores
         valid = obs.valid[None, :]                           # [1, Z]
         any_cand = jnp.any(state.lm_valid, axis=-1)[:, None]
         is_new = (best_ll < self._log_p0_assoc()) | ~any_cand
         do_new = is_new & valid
 
         # Free slots in ascending lane order (holes from culling, then the
-        # virgin tail); at most n_fs allocations per frame (kernel cap).
+        # virgin tail); at most n_fs allocations per frame.
         n_fs = min(Z, 64)
         lanes = jnp.arange(L, dtype=jnp.int32)[None, :]
         free_sorted = jnp.sort(
@@ -352,43 +331,8 @@ class FastSLAM:
         matched = matched | onehot_best | onehot_free
         return state, matched, do_update | do_alloc
 
-    def _measurement_update_pallas(
-        self, state: ParticleState, obs: Observation, weight_matched: bool = True
-    ):
-        """Route the whole frame through the fused Pallas kernel
-        (`kernels/ekf_update`). Semantics-identical to the XLA path (parity
-        tested in tests/test_ekf_kernel.py). `weight_matched=False` runs the
-        kernel with weight updates suppressed (FastSLAM 2.0 map pass)."""
-        from parakeet_slam_tpu.kernels import ekf_update
-
-        c = self.cfg
-        interpret = jax.devices()[0].platform != "tpu"
-        (log_w, lm_mean, lm_cov, lm_sig, lm_valid, lm_count, n_match) = (
-            ekf_update.measurement_update_2d(
-                state.pose, state.log_w, state.lm_mean, state.lm_cov,
-                state.lm_sig, state.lm_valid, state.lm_count,
-                obs.z, obs.sig, obs.valid,
-                sig_dim=c.sig_dim,
-                r_var=(c.meas_noise[0] ** 2, c.meas_noise[1] ** 2),
-                sig_var=c.sig_noise**2,
-                log_p0=c.new_landmark_loglik,
-                init_infl=c.init_cov_inflation,
-                max_range=c.max_range,
-                fov_half=c.fov_half_angle,
-                cull=c.cull_enabled,
-                cull_unseen=c.cull_unseen,
-                interpret=interpret,
-                update_weights=weight_matched,
-            )
-        )
-        state = state.replace(
-            log_w=log_w, lm_mean=lm_mean, lm_cov=lm_cov, lm_sig=lm_sig,
-            lm_valid=lm_valid, lm_count=lm_count,
-        )
-        return state, jnp.mean(n_match)
-
     def _vision_kernel_params(self):
-        """Static camera-parameter tuple shared by the fused 3-D kernels."""
+        """Static camera-parameter tuple of the score kernel."""
         fe = self.fe_cfg
         fx, fy, cx, cy = (fe.intrinsics[:4] if fe else (500.0, 500.0, 320.0, 240.0))
         H_img, W_img = fe.image_size if fe else (480, 640)
@@ -398,52 +342,6 @@ class FastSLAM:
             ("baseline", float(fe.baseline if fe else 0.1)),
             ("img_w", float(W_img)), ("img_h", float(H_img)),
         )
-
-    def _measurement_update_pallas_3d(
-        self, state: ParticleState, obs: Observation,
-        weight_matched: bool = True, scores=None,
-    ):
-        """Route a frame through the fused 3-D vision-model Pallas kernel
-        (`kernels/ekf_update_3d`). Parity with the XLA path is tested in
-        tests/test_ekf3d_kernel.py. `weight_matched=False` suppresses the
-        in-kernel weight updates (FastSLAM 2.0 map pass); `scores`
-        (best, best_ll) skips the in-kernel landmark sweep entirely."""
-        from parakeet_slam_tpu.kernels import ekf_update_3d
-
-        c = self.cfg
-        interpret = jax.devices()[0].platform != "tpu"
-        par = self._vision_kernel_params()
-        ext_ll = ext_ix = None
-        if scores is not None:
-            ext_ix, ext_ll = scores
-        (log_w, lm_mean, lm_cov, lm_desc, lm_valid, lm_count, n_match) = (
-            ekf_update_3d.measurement_update_3d(
-                state.pose, state.log_w, state.lm_mean, state.lm_cov,
-                state.lm_desc, state.lm_valid, state.lm_count,
-                obs.z, obs.desc, obs.valid,
-                ext_ll, ext_ix,
-                model=self.model.name,
-                desc_words=c.desc_words,
-                par=par,
-                r_var=tuple(float(v) ** 2 for v in c.meas_noise[: c.obs_dim]),
-                desc_weight=float(c.desc_weight),
-                log_p0=self._log_p0_assoc(),
-                init_infl=float(c.init_cov_inflation),
-                init_range_prior=float(c.init_range_prior),
-                init_range_sigma=float(c.init_range_sigma),
-                max_range=float(c.max_range),
-                cull=c.cull_enabled,
-                cull_unseen=c.cull_unseen,
-                interpret=interpret,
-                update_weights=weight_matched,
-                freeze=c.freeze_min_count,
-            )
-        )
-        state = state.replace(
-            log_w=log_w, lm_mean=lm_mean, lm_cov=lm_cov, lm_desc=lm_desc,
-            lm_valid=lm_valid, lm_count=lm_count,
-        )
-        return state, jnp.mean(n_match)
 
     def measurement_update(
         self, state: ParticleState, obs: Observation, key=None
@@ -456,11 +354,9 @@ class FastSLAM:
 
     def _temper(self, state: ParticleState, log_w0):
         """Likelihood tempering (config.likelihood_temper): rescale the
-        frame's log-weight increment. Applied to the DELTA so the same code
-        covers the XLA path and the fused Pallas kernels (which update
-        log_w internally) — and so every weight-producing path (FastSLAM 1
-        & 2 steps, the sharded step) shares it (advisor r4: FastSLAM2.step
-        and sharded_step silently ignored the knob)."""
+        frame's log-weight increment. Applied to the DELTA so every
+        weight-producing path (FastSLAM 1 & 2 steps, the sharded step)
+        shares it."""
         T = self.cfg.likelihood_temper
         if T == 1.0:
             return state
@@ -479,56 +375,21 @@ class FastSLAM:
         association sweep (FastSLAM 2.0: scored once at the proposal pose)."""
         c = self.cfg
         P, L = state.lm_valid.shape
-
-        if (
-            c.use_pallas
-            and scores is None
-            and self.model.name == "range_bearing_2d"
-            # the 2-D kernel has no freeze support; fall through to the
-            # (semantics-identical) XLA path when anchors are frozen
-            and c.freeze_min_count == 0
-        ):
-            return self._measurement_update_pallas(state, obs, weight_matched)
-        if self._pallas_3d_eligible():
-            if weight_matched and self._weight_shaping:
-                # Shaped weights are computed HERE (XLA) from a fused
-                # score_3d sweep; the kernel then runs the apply pass with
-                # those scores and its in-kernel weight update suppressed —
-                # the same score+apply split as FastSLAM 2.0's hoisted path.
-                if scores is None:
-                    scores = self._frame_scores(state, obs)
-                state = state.replace(
-                    log_w=state.log_w + self._weight_delta(state, obs, scores)
-                )
-                return self._measurement_update_pallas_3d(
-                    state, obs, weight_matched=False, scores=scores
-                )
-            return self._measurement_update_pallas_3d(
-                state, obs, weight_matched, scores
-            )
+        if scores is None:
+            scores = self._frame_scores(state, obs)
 
         matched0 = jnp.zeros((P, L), bool)
-        # fp32 discipline: the EKF small-matrix matmuls (H Σ Hᵀ, K ν, (I−KH)Σ)
-        # are batched dot_generals that TPU lowers to bf16-input MXU passes at
-        # default precision — enough error (~1% on covariances) to break
-        # parity with the elementwise-exact Pallas kernel. These ops are tiny
-        # relative to the frame, so force full fp32 like backend/ba.py does.
+        # The EKF small-matrix products (H S H^T, K nu, (I-KH) S) would run
+        # as TF32 on the GPU at default precision: pin full float32.
         with jax.default_matmul_precision("highest"):
-            # v2 semantics (shared with the Pallas kernels): batched
-            # pre-frame association, then sequential per-obs composition.
-            pre_state = state
+            # batched pre-frame association, then sequential per-obs
+            # composition
             target, is_new, do_upd, do_alloc, best_ll = self._associate_frame(
                 state, obs, scores
             )
             if weight_matched:
-                # Re-derive the best lane for the weight gather: target==-1
-                # rows are either new-without-slot (is_new covers them) or
-                # matched (target==best). _weight_delta only reads the lane
-                # when NOT is_new, so clip-garbage on new rows is inert.
-                best = jnp.where(is_new, 0, jnp.maximum(target, 0))
                 state = state.replace(
-                    log_w=state.log_w
-                    + self._weight_delta(pre_state, obs, (best, best_ll))
+                    log_w=state.log_w + self._weight_delta(state, obs, scores)
                 )
 
             def scan_body(carry, obs_row):
@@ -575,7 +436,7 @@ class FastSLAM:
 
         def do_resample(st):
             idx = resample_kernel.systematic_resample_indices(key, st.log_w)
-            return resample_kernel.gather_particles(st, idx, use_pallas=c.use_pallas)
+            return resample_kernel.gather_particles(st, idx)
 
         state = jax.lax.cond(need, do_resample, lambda st: st, state)
 

@@ -12,7 +12,7 @@ pose is then sampled from that refined Gaussian, and importance weights
 become `N(z; ẑ, H_x P H_xᵀ + H_m Σ H_mᵀ + R)` — the target/proposal ratio.
 The result is near-reference accuracy with far fewer particles.
 
-TPU-first formulation: the proposal stage is a `lax.scan` over the static
+Batched formulation: the proposal stage is a `lax.scan` over the static
 observation capacity whose body is fully batched over particles — the pose
 Gaussian lives as dense `[P, dt]` / `[P, dt, dt]` arrays (dt = 3 for SE(2),
 6 for the SE(3) right-tangent), association is the same masked `[P, L]`
@@ -60,9 +60,9 @@ class FastSLAM2(FastSLAM):
         return jax.jacfwd(lambda d: self.model.h(self.retract(pose, d), lm))(zero)
 
     def _hoist_association(self):
-        mode = getattr(self.cfg, "fs2_association", "auto")
+        mode = self.cfg.fs2_association
         if mode == "auto":
-            return self._pallas_3d_eligible()
+            return self._vision_3d
         return mode == "hoisted"
 
     def _associate(self, pose, state: ParticleState, z, sig, desc):
@@ -88,9 +88,9 @@ class FastSLAM2(FastSLAM):
         observations, then sample poses from it.
 
         Association mode (config.fs2_association): "hoisted" scores the
-        whole frame ONCE at the motion-mean pose — one fused `score_3d`
-        sweep instead of a [P, L] map sweep per observation (the HBM
-        pattern the fused kernels exist to kill; scoring at the proposal
+        whole frame ONCE at the motion-mean pose — one landmark sweep
+        (`_frame_scores`) instead of a [P, L] map sweep per observation
+        (scoring at the proposal
         mean is the standard practical approximation, sound when motion
         noise is small relative to landmark spacing — the vision configs
         with odometry priors). "sequential" re-associates each observation

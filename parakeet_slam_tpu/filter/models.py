@@ -3,9 +3,9 @@
 Implements the behavioral contract of SURVEY.md §3 (FastSLAM 1.0, Thrun et
 al. ch. 13): sampled motion models and landmark measurement models with
 **analytic** Jacobians. Analytic (not autodiff) because the same closed-form
-expressions are re-emitted inside the Pallas EKF kernel
-(`kernels/ekf_update`) where `jax.jacfwd` is unavailable; the plain-JAX
-filter and the kernel therefore share one source of truth for the math.
+expressions are re-emitted inside the association kernel
+(`kernels/score_3d`), where `jax.jacfwd` is unavailable; the tests hold the
+kernel to these models.
 
 Model interface (all per-single-landmark; the filter vmaps over [P, L]):
   h(pose, lm)        -> zhat [Dz]         predicted measurement

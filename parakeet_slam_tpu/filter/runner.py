@@ -3,7 +3,7 @@
 SURVEY.md §4.2 `slam.run`: the per-frame step (motion + measurement +
 resample) is one jit; driving a prerecorded sequence additionally wraps the
 whole trajectory in a single `lax.scan`, so a 500-step corridor run is ONE
-device program with zero host round-trips — the purest TPU formulation of
+device program with zero host round-trips — the purest device formulation of
 what the reference does one ROS message at a time.
 """
 

@@ -1,14 +1,14 @@
-"""Feature detection: FAST-style corners + Harris, TPU-formulated.
+"""Feature detection: FAST-style corners + Harris, as dense array ops.
 
 The reference delegated detection to an upstream ROS blob-detector node
 (SURVEY.md §1 L2); BASELINE.json's north star requires real feature
-detection on incoming (incl. panoramic) frames. TPU formulation:
+detection on incoming (incl. panoramic) frames. Formulation:
 
-- FAST segment test as 16 shifted-image views (pure elementwise VPU work,
+- FAST segment test as 16 shifted-image views (pure elementwise work,
   no gather): a pixel is a corner when >= `arc` contiguous ring neighbors
   are all brighter (or all darker) than center +- t. Contiguous-arc check
   is an AND-reduction over a rolled boolean ring — still elementwise.
-- Harris as separable box-filtered structure tensor (convs on the MXU).
+- Harris as separable box-filtered structure tensor (convolutions).
 - NMS as max-pool equality (`lax.reduce_window`), no sorting.
 - Fixed-capacity keypoint output via `lax.top_k` on the flattened score
   map — static shapes end to end, jit/scan-safe.

@@ -1,1 +1,1 @@
-from parakeet_slam_tpu.kernels import ekf_update, match, mathx, resample, resample_pallas, schur
+from parakeet_slam_tpu.kernels import match, resample, schur, score_3d

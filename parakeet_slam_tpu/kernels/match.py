@@ -1,28 +1,10 @@
-"""Tiled brute-force descriptor matching (Hamming + L2), Pallas + XLA twin.
+"""Brute-force descriptor matching (Hamming + L2) in XLA.
 
 BASELINE.json:5: "brute-force descriptor matching is a tiled Hamming/L2
-distance kernel". TPU-first design: both metrics are driven through the
-MXU as one fused distance+top-2 kernel.
-
-- Hamming rides the MXU via the bit-dot identity
-      popcount(a ^ b) = popcount(a) + popcount(b) - 2 * <bits(a), bits(b)>
-  Descriptors are unpacked once to 0/1 bf16 bit-planes ([*, 256] for
-  BRIEF-256); the cross term is a [TQ, 256] @ [256, TM] matmul with fp32
-  accumulation — EXACT for 256-bit descriptors (integers <= 256), so the
-  returned distances are bit-identical to the XOR+popcount reference while
-  running at matmul speed instead of ~100 VPU ops per pair. (The previous
-  revision's [TN,1]x[1,TM] broadcast-XOR form measured 0.5% of HBM SOL;
-  this form is MXU-bound.)
-- L2 uses the same kernel on raw float features: ||a-b||^2 =
-  ||a||^2 + ||b||^2 - 2 a.b. (SURVEY.md §2c `kernels/match` names both.)
-- The per-query running (best, second-best, argbest) folds across database
-  tiles IN-KERNEL, so the [N, M] distance matrix never materializes in
-  HBM — the speed-of-light property at M ~ 100k landmarks. Database tiles
-  stream while the query tile stays VMEM-resident (the blockwise-streaming
-  trick SURVEY.md §2b maps to ring matching across hosts).
-
-XLA reference implementations (`*_xla`) define the semantics for parity
-tests (tests/test_match.py).
+distance kernel". Hamming distances are XOR + population count, which the
+GPU does natively; L2 uses the matmul form ||a-b||^2 = ||a||^2 + ||b||^2 -
+2 a.b. At keyframe sizes (512 x 512 descriptors) the [N, M] distance matrix
+is small, and XLA fuses distance and top-2 into a few passes.
 """
 
 from __future__ import annotations
@@ -31,20 +13,9 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 _BIG = 2**30  # Python int: jnp scalars would be captured as tracer consts
 _BIG_F = 1e30
-
-
-def _round_up(x, m):
-    return ((x + m - 1) // m) * m
-
-
-# ---------------------------------------------------------------------------
-# XLA reference implementations
-# ---------------------------------------------------------------------------
 
 
 def hamming_distance_xla(qd: jax.Array, db: jax.Array) -> jax.Array:
@@ -57,7 +28,7 @@ def l2_distance_xla(qd: jax.Array, db: jax.Array) -> jax.Array:
     """[N, D] x [M, D] float -> [N, M] squared L2 distances (matmul form)."""
     qn = jnp.sum(qd * qd, axis=-1, keepdims=True)
     dn = jnp.sum(db * db, axis=-1, keepdims=True)
-    cross = qd @ db.T
+    cross = jnp.dot(qd, db.T, precision=jax.lax.Precision.HIGHEST)
     return jnp.maximum(qn + dn.T - 2.0 * cross, 0.0)
 
 
@@ -74,285 +45,15 @@ def _top2_from_dists(dist, db_valid):
     return best_idx, best, second
 
 
-def hamming_top2_xla(qd, db, db_valid):
+def hamming_top2(qd, db, db_valid):
+    """Per-query (best_idx, best, second) Hamming distances over the
+    valid database rows."""
     return _top2_from_dists(hamming_distance_xla(qd, db), db_valid)
 
 
-def l2_top2_xla(qd, db, db_valid):
+def l2_top2(qd, db, db_valid):
+    """Per-query (best_idx, best_d2, second_d2) squared L2 distances."""
     return _top2_from_dists(l2_distance_xla(qd, db), db_valid)
-
-
-# ---------------------------------------------------------------------------
-# Bit unpacking (packed uint32 words -> 0/1 bf16 bit-planes)
-# ---------------------------------------------------------------------------
-
-
-def unpack_bits(words: jax.Array) -> jax.Array:
-    """[N, W] uint32 -> [N, W*32] bf16 in {0, 1}.
-
-    Column order is (word-major, bit-minor); any fixed order works since
-    both operands of the bit-dot use the same unpacking.
-    """
-    n, w = words.shape
-    shifts = jnp.arange(32, dtype=jnp.uint32)
-    bits = (words[:, :, None] >> shifts[None, None, :]) & jnp.uint32(1)
-    return bits.reshape(n, w * 32).astype(jnp.bfloat16)
-
-
-# ---------------------------------------------------------------------------
-# Fused MXU distance + top-2 kernel (shared by Hamming and L2)
-# ---------------------------------------------------------------------------
-
-
-def _dist_top2_kernel(
-    q_ref, dbt_ref, qn_ref, dn_ref, valid_ref, bi_ref, b1_ref, b2_ref, *, tm
-):
-    """One (query-tile, db-tile) step: dist = qn + dn - 2 q @ db^T, fold
-    the per-query running (best, second, argbest) across db tiles."""
-    j = pl.program_id(1)
-    TN = q_ref.shape[0]
-
-    cross = jax.lax.dot_general(
-        q_ref[:, :], dbt_ref[:, :],
-        (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-    acc = qn_ref[:, :] + dn_ref[0:1, :] - 2.0 * cross
-    acc = jnp.where(valid_ref[0:1, :] > 0, acc, _BIG_F)
-
-    lane = jax.lax.broadcasted_iota(jnp.int32, (TN, tm), 1)
-    t1 = jnp.min(acc, axis=1, keepdims=True)                      # [TN, 1]
-    is_min = acc == t1
-    idx_local = jnp.min(jnp.where(is_min, lane, _BIG), axis=1, keepdims=True)
-    masked = jnp.where(lane == idx_local, _BIG_F, acc)
-    t2 = jnp.min(masked, axis=1, keepdims=True)
-    gidx = idx_local + j * tm
-
-    @pl.when(j == 0)
-    def _():
-        bi_ref[:, :] = gidx
-        b1_ref[:, :] = t1
-        b2_ref[:, :] = t2
-
-    @pl.when(j > 0)
-    def _():
-        b1 = b1_ref[:, :]
-        b2 = b2_ref[:, :]
-        bi = bi_ref[:, :]
-        new_b1 = jnp.minimum(b1, t1)
-        new_bi = jnp.where(t1 < b1, gidx, bi)
-        new_b2 = jnp.minimum(jnp.maximum(b1, t1), jnp.minimum(b2, t2))
-        bi_ref[:, :] = new_bi
-        b1_ref[:, :] = new_b1
-        b2_ref[:, :] = new_b2
-
-
-def _dist_top2(q_feat, db_feat, qn, dn, db_valid, interpret):
-    """Shared fused driver: features [N, D]/[M, D] (any float dtype),
-    precomputed squared norms, validity. Returns fp32 (idx, best, second)."""
-    N, D = q_feat.shape
-    M = db_feat.shape[0]
-    TM = 512 if M >= 512 else _round_up(max(M, 128), 128)
-    Mp = _round_up(max(M, TM), TM)
-    if N <= 128:
-        Np = _round_up(max(N, 8), 8)
-        TN = Np
-    else:
-        TN = 128
-        Np = _round_up(N, TN)
-
-    q_p = jnp.pad(q_feat, ((0, Np - N), (0, 0)))
-    db_p = jnp.pad(db_feat, ((0, Mp - M), (0, 0)))
-    qn_p = jnp.pad(qn, ((0, Np - N), (0, 0)))
-    dn_p = jnp.pad(dn, ((0, 0), (0, Mp - M)))
-    valid_p = jnp.pad(db_valid.astype(jnp.int32), (0, Mp - M))[None, :]
-    db_t = db_p.T  # [D, Mp]: contraction-major so the MXU streams db tiles
-
-    grid = (Np // TN, Mp // TM)
-    out_shape = (
-        jax.ShapeDtypeStruct((Np, 1), jnp.int32),
-        jax.ShapeDtypeStruct((Np, 1), jnp.float32),
-        jax.ShapeDtypeStruct((Np, 1), jnp.float32),
-    )
-    bi, b1, b2 = pl.pallas_call(
-        functools.partial(_dist_top2_kernel, tm=TM),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((TN, D), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((D, TM), lambda i, j: (0, j), memory_space=pltpu.VMEM),
-            pl.BlockSpec((TN, 1), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, TM), lambda i, j: (0, j), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, TM), lambda i, j: (0, j), memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((TN, 1), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((TN, 1), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((TN, 1), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-        ),
-        out_shape=out_shape,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-        ),
-        interpret=interpret,
-    )(q_p, db_t, qn_p, dn_p, valid_p)
-    return bi[:N, 0], b1[:N, 0], b2[:N, 0]
-
-
-def _hamming_packed_kernel(
-    q_ref, dbp_ref, qn_ref, dn_ref, valid_ref, bi_ref, b1_ref, b2_ref,
-    db_bits, *, tm, tn, w_words
-):
-    """One (db-tile, query-tile) step with the database kept PACKED in HBM.
-
-    Grid is (M-tiles, N-tiles) with queries innermost: each packed db tile
-    [TM, W] uint32 is unpacked to 0/1 bf16 bit-planes in VMEM scratch once
-    (at i == 0) and reused by every query tile — HBM sees W*4 bytes per
-    descriptor instead of the 32 bytes/descriptor of pre-unpacked planes.
-    The bit-dot itself is an NT-form MXU matmul against the scratch tile.
-
-    The running top-2 state lives in FULL-array output blocks ([Np, 1],
-    constant index map) addressed by dynamic row slices: with queries
-    innermost, per-query-tile output blocks would be revisited
-    NON-consecutively across db tiles, which the TPU Pallas pipeline does
-    not support (stale reads on the j>0 merge whenever N > TN and M > TM —
-    the round-3 bug flagged by the advisor). A constant-index-map block
-    stays VMEM-resident for the whole grid, so the merge reads are sound.
-    """
-    j = pl.program_id(0)
-    i = pl.program_id(1)
-
-    @pl.when(i == 0)
-    def _():
-        shifts = jax.lax.broadcasted_iota(jnp.uint32, (1, 32), 1)
-        for w in range(w_words):
-            bits = (dbp_ref[:, w : w + 1] >> shifts) & jnp.uint32(1)
-            # Mosaic has no uint32->bf16 cast; hop through int32.
-            db_bits[:, 32 * w : 32 * (w + 1)] = bits.astype(jnp.int32).astype(
-                jnp.bfloat16
-            )
-
-    cross = jax.lax.dot_general(
-        q_ref[:, :], db_bits[:, :],
-        (((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-    acc = qn_ref[:, :] + dn_ref[0:1, :] - 2.0 * cross
-    acc = jnp.where(valid_ref[0:1, :] > 0, acc, _BIG_F)
-
-    lane = jax.lax.broadcasted_iota(jnp.int32, (tn, tm), 1)
-    t1 = jnp.min(acc, axis=1, keepdims=True)
-    is_min = acc == t1
-    idx_local = jnp.min(jnp.where(is_min, lane, _BIG), axis=1, keepdims=True)
-    masked = jnp.where(lane == idx_local, _BIG_F, acc)
-    t2 = jnp.min(masked, axis=1, keepdims=True)
-    gidx = idx_local + j * tm
-
-    rows = pl.dslice(i * tn, tn)
-
-    @pl.when(j == 0)
-    def _():
-        bi_ref[rows, :] = gidx
-        b1_ref[rows, :] = t1
-        b2_ref[rows, :] = t2
-
-    @pl.when(j > 0)
-    def _():
-        b1 = b1_ref[rows, :]
-        b2 = b2_ref[rows, :]
-        bi = bi_ref[rows, :]
-        bi_ref[rows, :] = jnp.where(t1 < b1, gidx, bi)
-        b1_ref[rows, :] = jnp.minimum(b1, t1)
-        b2_ref[rows, :] = jnp.minimum(jnp.maximum(b1, t1), jnp.minimum(b2, t2))
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def hamming_top2(qd, db, db_valid, interpret: bool = False):
-    """Per-query (best_idx, best, second) over the database, fused in-kernel.
-
-    qd [N, W] uint32, db [M, W] uint32, db_valid [M] bool. Distances are
-    exact (fp32 accumulation of 0/1 bit-dots is integer-exact to 2^24) via
-    popcount(a^b) = popcount(a) + popcount(b) - 2<bits(a), bits(b)>: the
-    popcounts enter as the "squared norms" of the shared distance form.
-    Only the small query side is unpacked in XLA; the database streams
-    packed and unpacks inside the kernel (see _hamming_packed_kernel).
-    """
-    N, W = qd.shape
-    M = db.shape[0]
-    q_bits = unpack_bits(qd)
-    qn = jnp.sum(
-        jax.lax.population_count(qd).astype(jnp.int32), axis=1, keepdims=True
-    ).astype(jnp.float32)
-    dn = jnp.sum(
-        jax.lax.population_count(db).astype(jnp.int32), axis=1, keepdims=True
-    ).astype(jnp.float32).T
-
-    # Large tiles: the per-grid-step fixed cost (~1 us) dominates at small
-    # tiles; 2048-wide db tiles with 256-query tiles cut the step count 8x
-    # while staying ~2.5 MB of VMEM.
-    TM = 4096 if M >= 4096 else _round_up(max(M, 128), 128)
-    Mp = _round_up(max(M, TM), TM)
-    if N <= 256:
-        Np = _round_up(max(N, 8), 8)
-        TN = Np
-    else:
-        TN = 256
-        Np = _round_up(N, TN)
-
-    q_p = jnp.pad(q_bits, ((0, Np - N), (0, 0)))
-    db_p = jnp.pad(db, ((0, Mp - M), (0, 0)))
-    qn_p = jnp.pad(qn, ((0, Np - N), (0, 0)))
-    dn_p = jnp.pad(dn, ((0, 0), (0, Mp - M)))
-    valid_p = jnp.pad(db_valid.astype(jnp.int32), (0, Mp - M))[None, :]
-
-    grid = (Mp // TM, Np // TN)
-    out_shape = (
-        jax.ShapeDtypeStruct((Np, 1), jnp.int32),
-        jax.ShapeDtypeStruct((Np, 1), jnp.float32),
-        jax.ShapeDtypeStruct((Np, 1), jnp.float32),
-    )
-    bi, b1, b2 = pl.pallas_call(
-        functools.partial(_hamming_packed_kernel, tm=TM, tn=TN, w_words=W),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((TN, W * 32), lambda j, i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((TM, W), lambda j, i: (j, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((TN, 1), lambda j, i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, TM), lambda j, i: (0, j), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, TM), lambda j, i: (0, j), memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((Np, 1), lambda j, i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((Np, 1), lambda j, i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((Np, 1), lambda j, i: (0, 0), memory_space=pltpu.VMEM),
-        ),
-        out_shape=out_shape,
-        scratch_shapes=[pltpu.VMEM((TM, W * 32), jnp.bfloat16)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary"),
-        ),
-        interpret=interpret,
-    )(q_p, db_p, qn_p, dn_p, valid_p)
-    to_i32 = lambda d: jnp.where(
-        d >= _BIG_F / 2, _BIG, jnp.round(d).astype(jnp.int32)
-    )
-    return bi[:N, 0], to_i32(b1[:N, 0]), to_i32(b2[:N, 0])
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def l2_top2(qd, db, db_valid, interpret: bool = False):
-    """Per-query (best_idx, best_d2, second_d2) for float descriptors.
-
-    qd [N, D] float, db [M, D] float, db_valid [M] bool. Same fused MXU
-    kernel as Hamming; distances are squared L2 (clamped at 0 like the
-    XLA twin).
-    """
-    qd = qd.astype(jnp.float32)
-    db = db.astype(jnp.float32)
-    qn = jnp.sum(qd * qd, axis=1, keepdims=True)
-    dn = jnp.sum(db * db, axis=1, keepdims=True).T
-    bi, b1, b2 = _dist_top2(qd, db, qn, dn, db_valid, interpret)
-    clamp = lambda d: jnp.where(d >= _BIG_F / 2, _BIG_F, jnp.maximum(d, 0.0))
-    return bi, clamp(b1), clamp(b2)
 
 
 # ---------------------------------------------------------------------------
@@ -360,22 +61,13 @@ def l2_top2(qd, db, db_valid, interpret: bool = False):
 # ---------------------------------------------------------------------------
 
 
-@functools.partial(jax.jit, static_argnames=("ratio", "use_pallas", "interpret"))
-def match(
-    qd, q_valid, db, db_valid,
-    ratio: float = 0.8,
-    max_distance: int = 80,
-    use_pallas: bool = True,
-    interpret: bool = False,
-):
+@functools.partial(jax.jit, static_argnames=("ratio",))
+def match(qd, q_valid, db, db_valid, ratio: float = 0.8, max_distance: int = 80):
     """Lowe-ratio-tested nearest-neighbor matches.
 
     Returns (match_idx [N] int32 — index into db or -1, distance [N]).
     """
-    if use_pallas:
-        bi, b1, b2 = hamming_top2(qd, db, db_valid, interpret=interpret)
-    else:
-        bi, b1, b2 = hamming_top2_xla(qd, db, db_valid)
+    bi, b1, b2 = hamming_top2(qd, db, db_valid)
     # Strict Lowe test: rejects exact-duplicate ties (b1 == b2 == 0) too.
     good = (
         q_valid
@@ -385,22 +77,13 @@ def match(
     return jnp.where(good, bi, -1), b1
 
 
-@functools.partial(jax.jit, static_argnames=("ratio", "use_pallas", "interpret"))
-def match_l2(
-    qd, q_valid, db, db_valid,
-    ratio: float = 0.8,
-    max_distance: float = 1e6,
-    use_pallas: bool = True,
-    interpret: bool = False,
-):
+@functools.partial(jax.jit, static_argnames=("ratio",))
+def match_l2(qd, q_valid, db, db_valid, ratio: float = 0.8, max_distance: float = 1e6):
     """Lowe-ratio-tested nearest-neighbor matches for float descriptors.
 
     Ratio test operates on squared distances (ratio is squared to match the
     conventional distance-space test). Returns (match_idx [N], d2 [N]).
     """
-    if use_pallas:
-        bi, b1, b2 = l2_top2(qd, db, db_valid, interpret=interpret)
-    else:
-        bi, b1, b2 = l2_top2_xla(qd, db, db_valid)
+    bi, b1, b2 = l2_top2(qd, db, db_valid)
     good = q_valid & (b1 <= max_distance) & (b1 < (ratio * ratio) * b2)
     return jnp.where(good, bi, -1), b1

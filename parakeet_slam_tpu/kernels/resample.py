@@ -7,8 +7,9 @@ cost at [P, Lmax] scale (the reference deep-copies Python dicts here,
 SURVEY.md §4.1 entry 4).
 
 Index computation is cheap XLA (cumsum + searchsorted). The payload gather
-has a Pallas double-buffered DMA path (`kernels/resample_pallas`) selected
-via `use_pallas`; the XLA `jnp.take` path is the semantics reference.
+is `jnp.take` per leaf: a pure copy with nothing to fuse, bound by memory
+bandwidth (~1.8 GB of particle state at the KITTI preset's P=2048,
+L=10240).
 """
 
 from __future__ import annotations
@@ -31,16 +32,11 @@ def systematic_resample_indices(key, log_w: jax.Array) -> jax.Array:
     return jnp.clip(idx, 0, P - 1)
 
 
-def gather_particles(state, idx: jax.Array, use_pallas: bool = False):
+def gather_particles(state, idx: jax.Array):
     """Gather the full particle state (poses, weights, entire landmark maps)
     at `idx`, resetting weights to uniform. Works on any ParticleState-like
     pytree whose leaves have a leading particle axis."""
-    if use_pallas:
-        from parakeet_slam_tpu.kernels import resample_pallas
-
-        gathered = resample_pallas.gather_state(state, idx)
-    else:
-        gathered = jax.tree_util.tree_map(lambda a: jnp.take(a, idx, axis=0), state)
+    gathered = jax.tree_util.tree_map(lambda a: jnp.take(a, idx, axis=0), state)
     return gathered.replace(log_w=jnp.zeros_like(state.log_w))
 
 

@@ -3,23 +3,15 @@
 SURVEY.md §2c `kernels/schur`: per-landmark 3×3 C-block inverse feeding the
 E C⁻¹ Eᵀ reduced-camera-system products. The BA solver (`backend/ba.py`)
 uses an implicit-matvec PCG, so the hot op is y = C⁻¹·u for hundreds of
-thousands of landmark blocks per CG iteration.
-
-Pallas formulation: C arrives as 6 symmetric-plane arrays [N] (xx, xy, xz,
-yy, yz, zz) and u as 3 planes; the kernel computes the cofactor inverse and
-applies it in one pass — C⁻¹ itself (9N floats) never hits HBM. Layout is
-[8k, 128]-tiled plane-major, pure VPU arithmetic. The XLA twin
-(`apply_cinv_xla`) defines semantics and serves CPU.
+thousands of landmark blocks per CG iteration. The closed-form cofactor
+inverse is pure elementwise work, which XLA fuses into one pass: C⁻¹
+itself never reaches device memory.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 
 def _sym_planes(C):
@@ -46,76 +38,12 @@ def _cofactor_apply(xx, xy, xz, yy, yz, zz, u0, u1, u2, eps):
     return y0, y1, y2
 
 
-def apply_cinv_xla(C: jax.Array, u: jax.Array, eps: float = 1e-12) -> jax.Array:
-    """y = C⁻¹ u for symmetric C [N, 3, 3], u [N, 3] — XLA reference."""
+def cinv_apply(C: jax.Array, u: jax.Array, eps: float = 1e-12) -> jax.Array:
+    """y = C⁻¹ u for symmetric C [N, 3, 3], u [N, 3] — the op
+    `backend/ba.py` and `dist/dist_ba.py` call inside the PCG matvec."""
     xx, xy, xz, yy, yz, zz = _sym_planes(C)
     y0, y1, y2 = _cofactor_apply(
         xx, xy, xz, yy, yz, zz, u[:, 0], u[:, 1], u[:, 2], eps
     )
     return jnp.stack([y0, y1, y2], axis=-1)
 
-
-def _kernel(c_ref, u_ref, out_ref, *, eps):
-    xx = c_ref[0, :, :]
-    xy = c_ref[1, :, :]
-    xz = c_ref[2, :, :]
-    yy = c_ref[3, :, :]
-    yz = c_ref[4, :, :]
-    zz = c_ref[5, :, :]
-    y0, y1, y2 = _cofactor_apply(
-        xx, xy, xz, yy, yz, zz, u_ref[0, :, :], u_ref[1, :, :], u_ref[2, :, :], eps
-    )
-    out_ref[0, :, :] = y0
-    out_ref[1, :, :] = y1
-    out_ref[2, :, :] = y2
-
-
-def cinv_apply(C: jax.Array, u: jax.Array, eps: float = 1e-12) -> jax.Array:
-    """Production dispatch for y = C^-1 u: the fused Pallas kernel on TPU,
-    the XLA cofactor twin elsewhere (CPU tests / interpret). This is the op
-    `backend/ba.py` and `dist/dist_ba.py` call inside the PCG matvec."""
-    if jax.devices()[0].platform == "tpu":
-        return apply_cinv(C, u, eps=eps)
-    return apply_cinv_xla(C, u, eps=eps)
-
-
-@functools.partial(jax.jit, static_argnames=("interpret", "eps"))
-def apply_cinv(
-    C: jax.Array, u: jax.Array, eps: float = 1e-12, interpret: bool = False
-) -> jax.Array:
-    """Pallas fused inverse-apply; same signature/semantics as
-    `apply_cinv_xla`. Blocks stream [6|3, TR, 128] plane tiles through VMEM."""
-    N = C.shape[0]
-    LANES = 128
-    ROWS = 8
-    tile = LANES * ROWS
-    Np = ((N + tile - 1) // tile) * tile
-    R = Np // LANES  # total rows across the grid
-
-    def to_planes(m, planes):
-        out = jnp.stack(planes, axis=0)  # [k, N]
-        out = jnp.pad(out, ((0, 0), (0, Np - N)), constant_values=1.0 if m else 0.0)
-        return out.reshape(out.shape[0], R, LANES)
-
-    c_planes = to_planes(True, _sym_planes(C))
-    u_planes = to_planes(False, (u[:, 0], u[:, 1], u[:, 2]))
-
-    TR = min(ROWS * 8, R)  # 64 rows (= 8192 blocks) per grid step
-    while R % TR:
-        TR //= 2
-    grid = (R // TR,)
-
-    out = pl.pallas_call(
-        functools.partial(_kernel, eps=eps),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((6, TR, LANES), lambda i: (0, i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((3, TR, LANES), lambda i: (0, i, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (3, TR, LANES), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((3, R, LANES), C.dtype),
-        interpret=interpret,
-    )(c_planes, u_planes)
-    return out.reshape(3, Np)[:, :N].T

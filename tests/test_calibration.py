@@ -11,7 +11,6 @@ work depends on).
    -exact and actually freezes converged lanes.
 """
 
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -185,66 +184,3 @@ class TestFreeze:
             after[was_frozen], frozen_means[was_frozen],
             err_msg="frozen lanes moved",
         )
-
-    def test_freeze_kernel_parity(self):
-        """The in-kernel freeze gate must match the XLA path exactly
-        (interpret mode on CPU, SURVEY.md §5 kernel-parity strategy)."""
-        lm = _scene(seed=5)
-        fc, fe = _cfg(
-            freeze_min_count=6, desc_words=8, desc_weight=0.5,
-            new_landmark_loglik=-30.0, num_particles=8,
-        )
-        slam_x = make_filter(fc, fe)
-        slam_p = make_filter(dataclasses.replace(fc, use_pallas=True), fe)
-        rng = np.random.default_rng(11)
-        st_x = slam_x.init_state()
-        st_p = slam_p.init_state()
-        model = slam_x.model
-        p = np.array([0, 0, 0, 0, 0, 0, 1], np.float32)
-        u = np.array([0.03, 0, 0, 0, -0.01, 0], np.float32)
-        desc_world = rng.integers(
-            0, 2**32, (len(lm), 8), dtype=np.uint64
-        ).astype(np.uint32)
-        key = jax.random.PRNGKey(0)
-        Z = fc.max_observations
-        for t in range(8):
-            p = np.asarray(
-                geometry.se3_compose(
-                    jnp.asarray(p), geometry.se3_exp(jnp.asarray(u))
-                )
-            )
-            pw = jnp.asarray(p)
-            uv = np.asarray(
-                jax.vmap(lambda m: model.h(pw, m))(jnp.asarray(lm))
-            )
-            vis = np.asarray(
-                jax.vmap(lambda m: model.in_fov(pw, m))(jnp.asarray(lm))
-            )
-            idx = np.where(vis)[0][:Z]
-            z = np.zeros((Z, 2), np.float32)
-            v = np.zeros(Z, bool)
-            d = np.zeros((Z, 8), np.uint32)
-            z[: len(idx)] = uv[idx] + rng.normal(0, 0.5, (len(idx), 2))
-            v[: len(idx)] = True
-            d[: len(idx)] = desc_world[idx]
-            obs = make_observation(
-                jnp.asarray(z), desc=jnp.asarray(d), valid=jnp.asarray(v)
-            )
-            key, k = jax.random.split(key)
-            # identical poses on both paths (motion noise ~0)
-            st_x, _ = slam_x.step(st_x, jnp.asarray(u), obs, k)
-            st_p, _ = slam_p.step(st_p, jnp.asarray(u), obs, k)
-        vm = np.asarray(st_x.lm_valid)
-        np.testing.assert_array_equal(
-            np.asarray(st_p.lm_valid), vm, err_msg="valid mask"
-        )
-        np.testing.assert_allclose(
-            np.asarray(st_p.lm_mean)[vm], np.asarray(st_x.lm_mean)[vm],
-            rtol=1e-3, atol=1e-3, err_msg="means (freeze parity)",
-        )
-        np.testing.assert_array_equal(
-            np.asarray(st_p.lm_count), np.asarray(st_x.lm_count),
-            err_msg="counts",
-        )
-        # freeze actually engaged somewhere
-        assert (np.asarray(st_x.lm_count) >= 6).any()

@@ -71,9 +71,11 @@ class TestShardedSystem:
         assert drift < 5.0, drift
 
     def test_falls_back_without_enough_devices(self):
+        """A mesh larger than the visible devices is an error, not a quiet
+        single-device run."""
         cfg = _cfg(particle_axis=len(jax.devices()) * 2, map_axis=1)
-        sys_ = SLAMSystem(cfg)
-        assert sys_._sharded is None  # graceful single-device fallback
+        with pytest.raises(ValueError, match="devices"):
+            SLAMSystem(cfg)
 
     def test_distributed_ba_matches_single_device(self, world):
         sys_ = SLAMSystem(_cfg())

@@ -3,13 +3,11 @@ through the real loader, sequential sessions with checkpoint carry-over at
 the boundary, and the joint end-of-run BA (BASELINE.json:10)."""
 
 import numpy as np
-import pytest
 
 from parakeet_slam_tpu import cli
 from parakeet_slam_tpu.data.euroc import load_euroc, load_multi_session
 from parakeet_slam_tpu.data.synth_vision import make_hall_world, write_euroc_format
 
-cv2 = pytest.importorskip("cv2")
 
 
 def _tiny_sessions(tmp_path, n_sessions=2, steps=10):

@@ -151,65 +151,6 @@ def test_fastslam2_se3_motion_model():
     )
 
 
-def test_fastslam2_hoisted_pallas_matches_xla():
-    """FS2 on a 3-D vision model with hoisted association: the Pallas path
-    (score_3d sweep + ext-score map pass, interpret mode) must match the
-    XLA twin running the same hoisted semantics."""
-    from parakeet_slam_tpu.core.config import FrontendConfig
-
-    H_img, W_img = 96, 160
-    fx = 0.6 * W_img
-
-    def mk(use_pallas):
-        cfg = FilterConfig(
-            num_particles=8, max_landmarks=64, max_observations=6,
-            lm_dim=3, obs_dim=2, pose_dim=7, sig_dim=0, desc_words=8,
-            desc_weight=0.3, measurement_model="pinhole_3d",
-            motion_model="se3_odometry", motion_noise=(0.01, 0.005),
-            meas_noise=(2.0, 2.0), new_landmark_loglik=-25.0,
-            max_range=50.0, algorithm="fastslam2",
-            fs2_association="hoisted", use_pallas=use_pallas,
-        )
-        fe = FrontendConfig(
-            camera="pinhole", intrinsics=(fx, fx, W_img / 2, H_img / 2),
-            image_size=(H_img, W_img),
-        )
-        return FastSLAM2(cfg, fe)
-
-    s_p, s_x = mk(True), mk(False)
-    st_p, st_x = s_p.init_state(), s_x.init_state()
-    rng = np.random.default_rng(2)
-    u = jnp.asarray(np.r_[0.05, 0, 0.02, 0.005, 0, 0].astype(np.float32))
-    for f in range(3):
-        z = np.stack([
-            rng.uniform(30, 130, 6), rng.uniform(20, 76, 6)
-        ], 1).astype(np.float32)
-        desc = rng.integers(0, 2**32, (6, 8), dtype=np.uint32)
-        obs = make_observation(
-            jnp.asarray(z), desc=jnp.asarray(desc), valid=jnp.ones(6, bool)
-        )
-        key = jax.random.PRNGKey(100 + f)
-        st_p, _ = s_p.step(st_p, u, obs, key)
-        st_x, _ = s_x.step(st_x, u, obs, key)
-        np.testing.assert_array_equal(
-            np.asarray(st_p.lm_valid), np.asarray(st_x.lm_valid),
-            err_msg=f"frame {f} valid",
-        )
-        np.testing.assert_allclose(
-            np.asarray(st_p.log_w), np.asarray(st_x.log_w),
-            rtol=1e-3, atol=1e-2, err_msg=f"frame {f} log_w",
-        )
-        np.testing.assert_allclose(
-            np.asarray(st_p.pose), np.asarray(st_x.pose),
-            rtol=1e-3, atol=1e-3, err_msg=f"frame {f} pose",
-        )
-        vm = np.asarray(st_x.lm_valid)
-        np.testing.assert_allclose(
-            np.asarray(st_p.lm_mean)[vm], np.asarray(st_x.lm_mean)[vm],
-            rtol=1e-3, atol=1e-3, err_msg=f"frame {f} means",
-        )
-
-
 @pytest.mark.skipif(jax.device_count() < 8, reason="needs 8 virtual devices")
 def test_fastslam2_sharded_trajectory():
     """FastSLAM 2.0 under shard_map on the 8-device mesh: the proposal

@@ -34,7 +34,7 @@ def test_ring_top2_matches_global():
     db = _rand_desc(kd, M)
     dbv = jnp.arange(M) % 7 != 3
 
-    bi_ref, b1_ref, b2_ref = match_mod.hamming_top2_xla(qd, db, dbv)
+    bi_ref, b1_ref, b2_ref = match_mod.hamming_top2(qd, db, dbv)
 
     fn = shard_map_fn(
         lambda q, d, v: ring_hamming_top2(

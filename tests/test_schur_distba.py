@@ -1,4 +1,4 @@
-"""Schur kernel parity + distributed BA equals single-device BA."""
+"""Schur block apply against numpy + distributed BA equals single-device BA."""
 
 import jax
 import jax.numpy as jnp
@@ -18,12 +18,7 @@ class TestSchurKernel:
         a = jax.random.normal(key, (n, 3, 3))
         C = a @ jnp.swapaxes(a, -1, -2) + 0.5 * jnp.eye(3)
         u = jax.random.normal(jax.random.fold_in(key, 1), (n, 3))
-        y_ref = schur.apply_cinv_xla(C, u)
-        y_pal = schur.apply_cinv(C, u, interpret=True)
-        np.testing.assert_allclose(
-            np.asarray(y_pal), np.asarray(y_ref), rtol=1e-5, atol=1e-5
-        )
-        # against numpy solve
+        y_ref = schur.cinv_apply(C, u)
         y_np = np.linalg.solve(np.asarray(C), np.asarray(u)[..., None])[..., 0]
         np.testing.assert_allclose(np.asarray(y_ref), y_np, rtol=1e-3, atol=1e-4)
 

@@ -3,7 +3,6 @@ TUM/KITTI on-disk format writers, driven through the REAL dataset loaders
 (round-1 review: the loaders had never touched data in the real formats)."""
 
 import numpy as np
-import pytest
 
 import jax
 import jax.numpy as jnp
@@ -16,7 +15,6 @@ from parakeet_slam_tpu.data.synth_vision import (
 )
 from parakeet_slam_tpu.eval import ate_rmse
 
-cv2 = pytest.importorskip("cv2")
 
 
 def _small_desk(n_steps=8):

@@ -62,12 +62,12 @@ def _serial_loop_closure_reference(sys_, kf, ratio):
         idx, _ = match_mod.match(
             jnp.asarray(kf.desc), jnp.asarray(kf.valid),
             jnp.asarray(old.desc), jnp.asarray(old.valid),
-            ratio=ratio, use_pallas=False,
+            ratio=ratio,
         )
         ridx, _ = match_mod.match(
             jnp.asarray(old.desc), jnp.asarray(old.valid),
             jnp.asarray(kf.desc), jnp.asarray(kf.valid),
-            ratio=ratio, use_pallas=False,
+            ratio=ratio,
         )
         idx, ridx = np.asarray(idx), np.asarray(ridx)
         rows = np.arange(len(idx))
@@ -161,7 +161,7 @@ class TestAssignPointIds:
         world = rng.normal(size=(2, 3, 3)).astype(np.float32)
         (sd, sv, sp, cnt, drop), pid = _assign_point_ids(
             jnp.asarray(desc), jnp.asarray(valid), jnp.asarray(world),
-            cap=16, use_pallas=False, max_ham=40,
+            cap=16, max_ham=40,
         )
         pid = np.asarray(pid)
         # kf0: rows 0,1 new -> pids 0,1; row 2 invalid -> -1
@@ -181,7 +181,7 @@ class TestAssignPointIds:
         world = rng.normal(size=(1, 6, 3)).astype(np.float32)
         (_, _, _, cnt, drop), pid = _assign_point_ids(
             jnp.asarray(desc), jnp.asarray(valid), jnp.asarray(world),
-            cap=4, use_pallas=False, max_ham=40,
+            cap=4, max_ham=40,
         )
         assert int(cnt) == 4 and int(drop) == 2
         assert np.asarray(pid)[0].tolist() == [0, 1, 2, 3, -1, -1]

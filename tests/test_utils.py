@@ -101,8 +101,7 @@ class TestExports:
 
 class TestLoaders:
     def test_tum_fixture(self, tmp_path):
-        import cv2
-
+        from parakeet_slam_tpu.data.png import write_png
         from parakeet_slam_tpu.data.tum import load_tum
 
         root = tmp_path / "tum"
@@ -111,7 +110,7 @@ class TestLoaders:
         names = []
         for i in range(3):
             n = f"rgb/{i}.png"
-            cv2.imwrite(str(root / n), img)
+            write_png(root / n, img)
             names.append(n)
         (root / "rgb.txt").write_text(
             "# comment\n" + "\n".join(f"{i}.10 {n}" for i, n in enumerate(names))
@@ -128,17 +127,16 @@ class TestLoaders:
         np.testing.assert_allclose(seq.gt_pose[2, 0], 2.0)
 
     def test_kitti_fixture(self, tmp_path):
-        import cv2
-
         from parakeet_slam_tpu.data.kitti import load_kitti
+        from parakeet_slam_tpu.data.png import write_png
 
         root = tmp_path / "sequences" / "00"
         (root / "image_0").mkdir(parents=True)
         (root / "image_1").mkdir(parents=True)
         img = np.zeros((20, 40), np.uint8)
         for i in range(2):
-            cv2.imwrite(str(root / "image_0" / f"{i:06d}.png"), img)
-            cv2.imwrite(str(root / "image_1" / f"{i:06d}.png"), img)
+            write_png(root / "image_0" / f"{i:06d}.png", img)
+            write_png(root / "image_1" / f"{i:06d}.png", img)
         P0 = "P0: 700.0 0 600.0 0 0 700.0 180.0 0 0 0 1 0"
         P1 = "P1: 700.0 0 600.0 -376.0 0 700.0 180.0 0 0 0 1 0"
         (root / "calib.txt").write_text(P0 + "\n" + P1 + "\n")
@@ -154,9 +152,8 @@ class TestLoaders:
         np.testing.assert_allclose(seq.gt_positions()[1], [1.5, 0, 0])
 
     def test_euroc_fixture(self, tmp_path):
-        import cv2
-
         from parakeet_slam_tpu.data.euroc import load_euroc
+        from parakeet_slam_tpu.data.png import write_png
 
         root = tmp_path / "MH01"
         data_dir = root / "mav0" / "cam0" / "data"
@@ -164,7 +161,7 @@ class TestLoaders:
         gt_dir = root / "mav0" / "state_groundtruth_estimate0"
         gt_dir.mkdir(parents=True)
         img = np.zeros((16, 16), np.uint8)
-        cv2.imwrite(str(data_dir / "100.png"), img)
+        write_png(data_dir / "100.png", img)
         (root / "mav0" / "cam0" / "data.csv").write_text(
             "#ts,filename\n1000000000,100.png\n"
         )
